@@ -38,6 +38,11 @@ def pytest_configure(config):
         "slow: scaling checks run by the CI smoke step (REPRO_RUN_SLOW=1), "
         "skipped in tier-1",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels have no CPU mode); "
+        "skips where there is none",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
