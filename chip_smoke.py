@@ -5,20 +5,35 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
     python3 chip_smoke.py
 
-It drives the port's main path, the paper's deployment, end to end:
+It drives the port's two live paths end to end, the paper's ResNets and
+the early-exit LMs:
 
-1. device and build: the card's name and power limit, the CUDA kernel built
-   from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a``, TF32 off;
+1. device and build: the card's name and power limit, the four CUDA kernels
+   built from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a`` in one
+   parallel round (with each one's ptxas report), TF32 off;
 2. the stability-score kernel against its plain PyTorch version on the card
    (greedy, lattice and many-queue shapes; scalar and per-task tau; two
    clips), its argmin against the float64 numpy backend, and its time;
-3. the full-width early-exit ResNet-50/101/152 on the card against the same
+3. the LM kernels (rmsnorm, flash attention, the fused exit head) against
+   their plain versions on the card at every served model's shapes, in
+   bfloat16 and float32, ragged S and V included; their times (CUDA-graph
+   replay) beside the bound, the plain version and the library call;
+4. the full-width early-exit ResNet-50/101/152 on the card against the same
    modules on the CPU at every exit;
-4. live serving: ``measure_profile`` over the 120-cell table, then the
-   EdgeServing scheduler with the ``cuda`` scoring backend serving the
+5. live ResNet serving: ``measure_profile`` over the 120-cell table, then
+   the EdgeServing scheduler with the ``cuda`` scoring backend serving the
    paper's fig4 knee (lambda_152 = 140 req/s at 3:2:1, 3 s, drained), with a
    float64 numpy shadow scheduler on the same snapshots;
-5. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
+6. the LMs on the card against the CPU in float32: SmolLM-135M at full
+   width and depth at every exit, Phi-4-mini and Qwen3-8B at full width cut
+   to 2 layers and one exit;
+7. live LM serving: SmolLM-135M, Phi-4-mini and Qwen3-8B at full width and
+   depth in bfloat16, ``measure_profile`` over 3 x 4 x 4 cells, then a 3 s
+   Poisson trace at 3:2:1 whose total rate keeps the card 90% busy at the
+   final exit and B = 8, served with the ``cuda`` scoring backend and the
+   float64 shadow; each LM kernel's launches must equal the count implied
+   by the engine's decisions;
+8. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
 
 Each phase prints JSON lines. Any failed check raises, so the script exits
 non-zero before the last line. Without a CUDA device, or outside a checkout
@@ -38,10 +53,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# The card's published peaks (H100 SXM data sheet): HBM rate and float32
-# (non-tensor-core) rate, for the kernel's least possible time.
+# The card's published peaks (H100 SXM data sheet): HBM rate, float32
+# (non-tensor-core) rate and the dense bfloat16 tensor-core rate, for a
+# kernel's least possible time.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
+KERNELS = ("stability_score", "rmsnorm", "flash_attention", "exit_head")
 OPS_PER_ELEMENT = 8   # add, div, sub, min, exp, min, mul, add per (n, task)
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
@@ -50,6 +68,13 @@ TIE_RTOL = 1e-6
 SLO = 0.050
 LAMBDA_152 = 140.0
 HORIZON_S = 3.0
+# tests/test_kernels.py:22-23; the float32 one also holds the LMs' card
+# against their CPU runs (the reference's model tests use it)
+LM_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+LM_ARCHS = ("smollm-135m", "phi4-mini-3.8b", "qwen3-8b")
+LM_PROMPT = 128
+LM_BATCHES = (1, 2, 4, 8)
+LM_BUSY = 0.9       # card share kept busy at the final exit and B = 8
 
 
 class SmokeFailure(Exception):
@@ -122,16 +147,21 @@ def phase_device_and_build():
     card = smi("name,power.limit")
     print(card, flush=True)
     t0 = time.perf_counter()
-    path = build.build(["stability_score"])["stability_score"]
+    paths = build.build(list(KERNELS))
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in build.BUILD_LOG.get(
-        "stability_score", {}).get("ptxas", "").splitlines()
+    ptxas = {name: [ln.strip() for ln in build.BUILD_LOG.get(
+        name, {}).get("ptxas", "").splitlines()
         if "registers" in ln or "spill" in ln]
+        for name in KERNELS}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     emit("build", card=card, torch=torch.__version__,
-         cuda=torch.version.cuda, library=path.name,
-         build_seconds=seconds, ptxas=ptxas)
+         cuda=torch.version.cuda,
+         libraries={n: p.name for n, p in paths.items()},
+         build_seconds=seconds,
+         per_kernel_seconds={n: build.BUILD_LOG.get(n, {}).get("seconds")
+                             for n in KERNELS},
+         ptxas=ptxas)
     return card
 
 
@@ -239,7 +269,7 @@ def phase_kernel(device):
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the full-width ResNets on the card against the CPU
+# Phase 4: the full-width ResNets on the card against the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -280,7 +310,7 @@ def phase_models(configs, device):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: live serving
+# Phase 5: live ResNet serving
 # ---------------------------------------------------------------------------
 
 
@@ -308,10 +338,42 @@ def _score_of(sched, snapshot, model):
     return float(scores[list(cq).index(model)])
 
 
-def phase_serving(served, device):
+def shadow_check(phase, scored, table, max_batch):
+    """Decide every recorded snapshot again with the float64 numpy
+    EdgeServing scheduler; a decision that differs must be a float32 tie.
+    Returns the numpy scheduler."""
     from repro_torch.core import (
         SchedulerConfig,
         VectorizedEdgeServingScheduler,
+        make_scheduler,
+    )
+
+    shadow = make_scheduler("edgeserving", table,
+                            SchedulerConfig(slo=SLO, max_batch=max_batch))
+    vec64 = VectorizedEdgeServingScheduler(
+        table, SchedulerConfig(slo=SLO, max_batch=max_batch))
+    mismatches = ties = 0
+    for snap, d in scored:
+        ds = shadow.decide(snap)
+        if (d.model, d.exit_idx, d.batch_size) == (
+                ds.model, ds.exit_idx, ds.batch_size):
+            continue
+        s_card = _score_of(vec64, snap, d.model)
+        s_host = _score_of(vec64, snap, ds.model)
+        if abs(s_card - s_host) <= TIE_RTOL * abs(s_host):
+            ties += 1
+        else:
+            mismatches += 1
+    emit(phase, rounds=len(scored), mismatches=mismatches,
+         float32_ties=ties)
+    check(mismatches == 0, f"{mismatches} decisions differ from the numpy "
+                           f"shadow beyond float32 ties")
+    return shadow
+
+
+def phase_serving(served, device):
+    from repro_torch.core import (
+        SchedulerConfig,
         make_scheduler,
         paper_rate_vector,
         poisson_arrivals,
@@ -380,26 +442,7 @@ def phase_serving(served, device):
     check(launches == len(scored),
           f"kernel launches {launches} != scoring rounds {len(scored)}")
 
-    shadow = make_scheduler("edgeserving", table,
-                            SchedulerConfig(slo=SLO, max_batch=10))
-    vec64 = VectorizedEdgeServingScheduler(
-        table, SchedulerConfig(slo=SLO, max_batch=10))
-    mismatches = ties = 0
-    for snap, d in scored:
-        ds = shadow.decide(snap)
-        if (d.model, d.exit_idx, d.batch_size) == (
-                ds.model, ds.exit_idx, ds.batch_size):
-            continue
-        s_card = _score_of(vec64, snap, d.model)
-        s_host = _score_of(vec64, snap, ds.model)
-        if abs(s_card - s_host) <= TIE_RTOL * abs(s_host):
-            ties += 1
-        else:
-            mismatches += 1
-    emit("shadow", rounds=len(scored), mismatches=mismatches,
-         float32_ties=ties)
-    check(mismatches == 0, f"{mismatches} decisions differ from the numpy "
-                           f"shadow beyond float32 ties")
+    shadow = shadow_check("shadow", scored, table, max_batch=10)
 
     # per-round decision time on the recorded snapshots, host clock
     cuda_sched = make_scheduler("edgeserving", table, cfg)
@@ -420,33 +463,490 @@ def phase_serving(served, device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def _rate(dtype, matrix: bool) -> float:
+    """Peak operations per second for work on ``dtype`` inputs: a matrix
+    product on bfloat16 inputs may use the tensor cores; anything else runs
+    on the float32 units."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    if not (SRC / "repro_torch" / "csrc" / "stability_score.cu").exists():
-        print(f"chip_smoke: no port sources under {SRC}; run it from a "
-              f"checkout of the repository", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
-    from repro_torch.configs import FULL
+    return (PEAK_BF16_OPS_PER_S if matrix and dtype == torch.bfloat16
+            else PEAK_F32_OPS_PER_S)
 
-    phase_device_and_build()
-    kernel = phase_kernel("cuda")
-    served = phase_models(FULL, "cuda")
-    launches = phase_serving(served, "cuda")
+
+def _bound_ms(nbytes: float, ops: float, rate: float):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _lm_kernel_cases(configs):
+    """(kernel, label, shape) at every served model's shapes (B = 8, S =
+    128; the exit head at every batch of the ladder), ragged S and V, and
+    one long prompt (B = 1, S = 2048) of the last model's attention."""
+    b, s = LM_BATCHES[-1], LM_PROMPT
+    cases = []
+    for arch, cfg in configs.items():
+        dh = cfg.head_dim_
+        cases.append(("rmsnorm", f"{arch}/residual", (b * s, cfg.d_model)))
+        if cfg.qk_norm:
+            cases.append(("rmsnorm", f"{arch}/qk",
+                          (b * s * cfg.num_heads, dh)))
+        cases.append(("flash_attention", f"{arch}/prefill",
+                      (b, cfg.num_heads, cfg.num_kv_heads, s, dh)))
+        cases.append(("flash_attention", f"{arch}/ragged_s77",
+                      (2, cfg.num_heads, cfg.num_kv_heads, 77, dh)))
+        for t in LM_BATCHES:
+            cases.append(("exit_head",
+                          f"{arch}/served" + ("" if t == b else f"_t{t}"),
+                          (t, cfg.d_model, cfg.vocab_size)))
+        cases.append(("exit_head", f"{arch}/t3_ragged_v",
+                      (3, cfg.d_model, cfg.vocab_size - 5)))
+    cases.append(("rmsnorm", "ragged_t1000", (1000, 4096)))
+    last = list(configs.values())[-1]
+    cases.append(("flash_attention", "long_prompt_s2048",
+                  (1, last.num_heads, last.num_kv_heads, 2048,
+                   last.head_dim_)))
+    return cases
+
+
+def _lm_kernel_inputs(kernel, shape, dtype, device, gen):
+    import torch
+
+    def randn(*size, scale=1.0, shift=0.0):
+        x = torch.randn(size, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * scale + shift).to(dtype)
+
+    if kernel == "rmsnorm":
+        t, d = shape
+        return (randn(t, d, scale=3.0), randn(d, scale=0.2, shift=1.0))
+    if kernel == "flash_attention":
+        b, h, kh, s, d = shape
+        return (randn(b, h, s, d), randn(b, kh, s, d), randn(b, kh, s, d))
+    t, d, v = shape
+    return (randn(t, d), randn(d, scale=0.1, shift=1.0),
+            randn(d, v, scale=d ** -0.5))
+
+
+def _lm_kernel_cost(kernel, shape, dtype):
+    """(bytes, operations, rate) of one call: each input read once, each
+    output written once; causal attention counted at half the square."""
+    import torch
+
+    el = torch.tensor([], dtype=dtype).element_size()
+    if kernel == "rmsnorm":
+        t, d = shape
+        return (2 * t * d + d) * el, 4 * t * d, _rate(dtype, False)
+    if kernel == "flash_attention":
+        b, h, kh, s, d = shape
+        nbytes = (2 * b * h * s * d + 2 * b * kh * s * d) * el
+        return nbytes, 4 * b * h * s * s * d / 2, _rate(dtype, True)
+    t, d, v = shape
+    return ((t * d + d + d * v) * el + t * 12, 2 * t * d * v,
+            _rate(dtype, True))
+
+
+def _lm_library(kernel, args):
+    """One PyTorch call computing the same function, timed as the yardstick
+    (the port never calls it); None where there is none."""
+    import torch.nn.functional as F
+
+    if kernel == "rmsnorm":
+        x, g = args
+        return lambda: F.rms_norm(x, (x.shape[-1],), weight=g, eps=1e-6)
+    if kernel == "flash_attention":
+        q, k, v = args
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
+    return None
+
+
+def _lm_compare(kernel, args, got, want, dtype_name, label):
+    """Max abs error of kernel against plain; raises beyond the tolerance.
+    The exit head's max and lse are float32 outputs in either input dtype
+    and are held at the float32 tolerance; its token must equal the plain
+    argmax in float32, and in bfloat16 equal it or score within that
+    tolerance of the plain maximum."""
+    import torch
+
+    from repro_torch.kernels.exit_head.ref import exit_head_logits
+
+    tol = LM_TOL[dtype_name]
+    if kernel == "exit_head":
+        tol = LM_TOL["float32"]
+        pairs = list(zip(got[1:], want[1:]))
+        if dtype_name == "float32":
+            check(torch.equal(got[0].cpu(), want[0].cpu()),
+                  f"exit_head {label} float32 argmax differs from plain")
+        else:
+            picked = exit_head_logits(*args).gather(
+                1, got[0].long()[:, None])[:, 0]
+            check(bool(torch.all((got[0] == want[0]) |
+                                 (want[1] - picked <= tol))),
+                  f"exit_head {label} {dtype_name}: token "
+                  f"{got[0].tolist()} vs plain {want[0].tolist()}")
+    else:
+        pairs = [(got, want)]
+    err = 0.0
+    for g, w in pairs:
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{kernel} {label} not finite")
+        check(torch.allclose(g, w, rtol=tol, atol=tol),
+              f"{kernel} {label} {dtype_name}: max abs err "
+              f"{float((g - w).abs().max())} beyond {tol}")
+        err = max(err, float((g - w).abs().max()))
+    return err
+
+
+def phase_lm_kernels(configs, device):
+    """Every LM kernel against its plain version at the served shapes, in
+    bfloat16 and float32; bfloat16 times at each shape."""
+    import torch
+
+    from repro_torch.kernels.exit_head.ops import exit_head
+    from repro_torch.kernels.exit_head.ref import exit_head_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
+
+    from repro_torch.device import synchronize
+
+    wrappers = {"rmsnorm": (rmsnorm, rmsnorm_plain),
+                "flash_attention": (flash_attention, flash_attention_plain),
+                "exit_head": (exit_head, exit_head_plain)}
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in wrappers}
+    timings = {k: {} for k in wrappers}
+    for kernel, label, shape in _lm_kernel_cases(configs):
+        fn, plain = wrappers[kernel]
+        for dname, dtype in dtypes.items():
+            args = _lm_kernel_inputs(kernel, shape, dtype, dev, gen)
+            got = fn(*args)
+            synchronize(dev)
+            want = plain(*args)
+            errs[kernel][dname] = max(errs[kernel][dname], _lm_compare(
+                kernel, args, got, want, dname, label))
+            if dname != "bfloat16":
+                continue
+            nbytes, ops, rate = _lm_kernel_cost(kernel, shape, dtype)
+            bound, bound_by = _bound_ms(nbytes, ops, rate)
+            lib = _lm_library(kernel, args)
+            timings[kernel][label] = dict(
+                shape=list(shape), dtype=dname,
+                ms=graph_ms(lambda: fn(*args), 20),
+                plain_ms=cuda_ms(lambda: plain(*args), 5),
+                library_ms=None if lib is None else cuda_ms(lib, 20),
+                bound_ms=bound, bound_by=bound_by)
+            del got, want, args
+    if dev.type == "cuda":
+        # ties across the exit head's tile boundaries go to the first index
+        for dtype in dtypes.values():
+            h = torch.ones((2, 16), dtype=dtype, device=dev)
+            w = torch.zeros((16, 1024), dtype=dtype, device=dev)
+            w[:, [127, 128, 255, 256]] = 1.0
+            idx = exit_head(h, torch.ones(16, dtype=dtype, device=dev), w)[0]
+            check(idx.tolist() == [127, 127],
+                  f"exit_head ties: {idx.tolist()} != [127, 127]")
+    emit("lm_kernels", max_abs_err=errs, tol=LM_TOL, timings=timings)
+    return dict(errs=errs, timings=timings)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the LMs on the card against the CPU, float32
+# ---------------------------------------------------------------------------
+
+
+def _lm_outputs(model, tokens, exits):
+    """{exit: (forward_exit logits, exit_decision's (token, max, lse))} on
+    the CPU."""
+    import torch
+
+    dev = model.embed.device
+    out = {}
+    with torch.inference_mode():
+        for e in exits:
+            batch = {"tokens": tokens.to(dev)}
+            out[e] = (model.forward_exit(batch, e).cpu(),
+                      tuple(x.cpu() for x in model.exit_decision(batch, e)))
+    return out
+
+
+def _lm_check_pair(model, batch_size, seq, exits, label):
+    """forward_exit logits and exit_decision of the model on its device
+    (the kernels) against the same model moved to the CPU (the plain
+    versions) at each exit; returns {exit: max abs err}."""
+    import torch
+
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq),
+                           generator=gen)
+    card = _lm_outputs(model, tokens, exits)
+    host = _lm_outputs(model.to("cpu"), tokens, exits)
+    tol = LM_TOL["float32"]
+    errs = {}
+    for e in exits:
+        got, (g_idx, g_mx, g_lse) = card[e]
+        want, (w_idx, w_mx, w_lse) = host[e]
+        check(got.shape == (batch_size, seq, cfg.vocab_padded),
+              f"{label} exit {e} shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{label} exit {e} not finite")
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=tol, atol=tol),
+              f"{label} exit {e}: card and CPU logits differ by {err}")
+        for a, b, what in ((g_mx, w_mx, "max"), (g_lse, w_lse, "lse")):
+            check(torch.allclose(a, b, rtol=tol, atol=tol),
+                  f"{label} exit {e}: exit head {what} differs by "
+                  f"{float((a - b).abs().max())}")
+        # the card's token is the CPU's, or a near-tie in the CPU's logits
+        last = want[:, -1]
+        picked = last.gather(1, g_idx.long()[:, None])[:, 0]
+        check(bool(torch.all((g_idx == w_idx) | (
+            (last.amax(-1) - picked) <= tol))),
+              f"{label} exit {e}: exit head token {g_idx.tolist()} vs "
+              f"{w_idx.tolist()}")
+        errs[f"{label}/exit{e}"] = max(
+            err, float((g_mx - w_mx).abs().max()),
+            float((g_lse - w_lse).abs().max()))
+    return errs
+
+
+def phase_lm_models(configs, device, seq=LM_PROMPT):
+    """SmolLM (the first config) at full depth, every exit; the others cut
+    to 2 layers and one exit; all in float32, card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import DecoderLM
+
+    errs, cuts = {}, {}
+    for i, (arch, cfg) in enumerate(configs.items()):
+        if i == 0:
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+            batch_size, s, exits = 2, seq, range(cfg.num_exits)
+        else:
+            cfg32 = dataclasses.replace(cfg, num_layers=2, exits=(2,),
+                                        dtype=torch.float32)
+            batch_size, s, exits = 1, 32, (0,)
+            cuts[arch] = "2 layers, one exit, B=1, S=32"
+        gen = torch.Generator(device=device).manual_seed(7 + i)
+        model = DecoderLM(cfg32, generator=gen, device=device).eval()
+        errs.update(_lm_check_pair(model, batch_size, s, exits, arch))
+        del model
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    emit("lm_models", max_abs_err_vs_cpu=errs, tol=LM_TOL["float32"],
+         cut=cuts)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: live LM serving
+# ---------------------------------------------------------------------------
+
+
+def _expected_launches(served, decisions):
+    """Launches of each LM kernel implied by the engine's decisions:
+    rmsnorm 2 L_e per quantum (+ 2 L_e for per-head q/k norm), flash
+    attention L_e, the exit head 1."""
+    want = {"rmsnorm": 0, "flash_attention": 0, "exit_head": 0}
+    for d in decisions:
+        cfg = served[d.model].values.cfg
+        layers = cfg.exits[d.exit_idx]
+        want["rmsnorm"] += 2 * layers * (2 if cfg.qk_norm else 1)
+        want["flash_attention"] += layers
+        want["exit_head"] += 1
+    return want
+
+
+def phase_lm_serving(configs, device, horizon=HORIZON_S):
+    import torch
+
+    from repro_torch.core import (
+        SchedulerConfig,
+        make_scheduler,
+        poisson_arrivals,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.server import (
+        ServingEngine,
+        measure_profile,
+        run_quantum,
+        serve_lms,
+    )
+
+    t0 = time.perf_counter()
+    served = serve_lms(configs, device=device, seed=0,
+                       prompt_len=LM_PROMPT, max_batch=LM_BATCHES[-1])
+    build_s = time.perf_counter() - t0
+    params = {m.name: sum(p.numel() for p in m.values.parameters())
+              for m in served}
+    # one untimed pass over every cell first (clocks, cuBLAS heuristics)
+    for mod in served:
+        for e in range(mod.num_exits):
+            for b in LM_BATCHES:
+                run_quantum(mod, e, b)
+    clocks_before = smi("clocks.sm,power.draw")
+    t0 = time.perf_counter()
+    table = measure_profile(served, batch_sizes=LM_BATCHES,
+                            exit_names=("exit0", "exit1", "exit2", "exit3"),
+                            repeats=10, warmup=2)
+    profile_s = time.perf_counter() - t0
+    clocks_after = smi("clocks.sm,power.draw")
+    check(table.latency.shape == (3, 4, len(LM_BATCHES)), "LM profile shape")
+    lat_ms = table.latency * 1e3
+    emit("lm_profile", seconds=profile_s, build_seconds=build_s,
+         params=params, platform=table.meta["platform"],
+         sm_clock_power=[clocks_before, clocks_after],
+         cells=int(table.latency.size),
+         ms={f"{table.model_names[m]}/{table.exit_names[e]}":
+             [float(x) for x in lat_ms[m, e]]
+             for m in range(3) for e in range(4)},
+         batch_sizes=list(LM_BATCHES),
+         peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if torch.device(device).type == "cuda" else None))
+
+    # total rate: sum_m lambda_m L(m, final, B_max) / B_max = LM_BUSY
+    split = np.array([3.0, 2.0, 1.0]) / 6.0
+    per_request = table.latency[:, -1, -1] / LM_BATCHES[-1]
+    total = LM_BUSY / float(np.sum(split * per_request))
+    rates = total * split
+    emit("lm_rate", total_req_s=total, per_model_req_s=rates.tolist(),
+         busy_target=LM_BUSY,
+         final_b8_ms=(table.latency[:, -1, -1] * 1e3).tolist())
+
+    cfg = SchedulerConfig(slo=SLO, max_batch=LM_BATCHES[-1], backend="cuda",
+                          device=device)
+    sched = RecordingScheduler(make_scheduler("edgeserving", table, cfg))
+    engine = ServingEngine(served, sched)
+    engine.warmup()
+    arrivals = poisson_arrivals(rates.tolist(), horizon, seed=0)
+    reset_launch_counts()
+    completions, span = engine.run(arrivals, horizon, drain=True)
+    launches = {k: launch_counts[k] for k in KERNELS}
+    m = engine.metrics(table, SLO, span)
+    decisions = [d for _, d in sched.rounds if d is not None]
+    scored = [(s, d) for s, d in sched.rounds if s.nonempty()]
+    want = _expected_launches(served, decisions)
+    residual = m.residual_queue
+    emit("lm_serve", arrivals=len(arrivals), completed=len(completions),
+         dropped=engine.dropped, residual=residual, span_s=span,
+         p95_ms=m.p95_latency * 1e3, p50_ms=m.p50_latency * 1e3,
+         violation_ratio=m.violation_ratio,
+         mean_exit_depth=m.mean_exit_depth, utilization=m.utilization,
+         throughput=m.throughput, mean_batch=m.mean_batch,
+         quanta=len(decisions), scoring_rounds=len(scored),
+         launches=launches, launches_implied=want,
+         per_model=[dict(model=pm.model, completed=pm.num_completed,
+                         violation_ratio=pm.violation_ratio,
+                         p95_ms=pm.p95_latency * 1e3,
+                         mean_exit_depth=pm.mean_exit_depth)
+                    for pm in m.per_model])
+    check(len(completions) + engine.dropped + residual == len(arrivals),
+          "LM arrivals not conserved")
+    check(len(decisions) > 0, "no LM quantum ran")
+    check(launches["stability_score"] == len(scored),
+          f"stability launches {launches['stability_score']} != scoring "
+          f"rounds {len(scored)}")
+    for kernel, n in want.items():
+        check(launches[kernel] == n,
+              f"{kernel} launches {launches[kernel]} != {n} implied by the "
+              f"decisions")
+    shadow_check("lm_shadow", scored, table, max_batch=LM_BATCHES[-1])
+    lm_breakdown(served)
+    return launches
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    for key in ("rmsnorm", "flash_attention", "exit_head"):
+        if key in low:
+            return key
+    if any(k in low for k in ("gemm", "cutlass", "nvjet", "xmma", "cublas")):
+        return "matmul"
+    return "other"
+
+
+def lm_breakdown(served):
+    """Where a quantum's time goes, at the final exit and B = 1 and 8: the
+    host-clock time of a quantum (median of 5, no profiler), and from one
+    quantum under ``torch.profiler`` the device time of its kernels by class
+    (our three kernels, matrix products, the rest); idle share = 1 - device
+    time / quantum time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.server import run_quantum
+
+    rows = {}
+    for mod in served:
+        e = mod.num_exits - 1
+        for b in (1, LM_BATCHES[-1]):
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                run_quantum(mod, e, b)
+                walls.append(time.perf_counter() - t0)
+            wall_ms = float(np.median(walls)) * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run_quantum(mod, e, b)
+            by_class, counts = {}, {}
+            for evt in prof.events():
+                if evt.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                cls = _kernel_class(evt.name)
+                by_class[cls] = by_class.get(cls, 0.0) + (
+                    evt.device_time_total / 1e3)
+                counts[cls] = counts.get(cls, 0) + 1
+            device_ms = sum(by_class.values())
+            rows[f"{mod.name}/final/B{b}"] = dict(
+                quantum_ms=wall_ms, device_ms=device_ms,
+                idle_share=1.0 - device_ms / wall_ms,
+                device_ms_by_class=by_class, kernels_by_class=counts)
+    emit("lm_breakdown", rows=rows)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# The kernel summary line
+# ---------------------------------------------------------------------------
+
+LM_KERNEL_ROWS = {
+    # kernel: (source, the TPU kernel it replaces, the main timed case)
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/kernel.py:18",
+                f"{LM_ARCHS[-1]}/residual"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:27",
+                        f"{LM_ARCHS[-1]}/prefill"),
+    "exit_head": ("src/repro_torch/csrc/exit_head.cu",
+                  "src/repro/kernels/exit_head/kernel.py:28",
+                  f"{LM_ARCHS[-1]}/served"),
+}
+
+
+def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches):
+    """One entry per kernel of the port's paths, with every key of the
+    contract; the stability score's launches are both serving runs'."""
     t3 = kernel["timings"]["m3"]
     t256 = kernel["timings"]["m256"]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "stability_score",
         "route": "cuda",
         "source": "src/repro_torch/csrc/stability_score.cu",
         "replaces": "src/repro/kernels/stability_score/kernel.py:35",
-        "launches": launches,
+        "launches": resnet_launches + lm_launches["stability_score"],
+        "launches_resnet_serve": resnet_launches,
+        "launches_lm_serve": lm_launches["stability_score"],
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": t3["ms"],
@@ -460,7 +960,52 @@ def main() -> int:
         "plain_ms_m256": t256["plain_ms"],
         "bound_ms_m256": t256["bound_ms"],
         "bound_by_m256": t256["bound_by"],
-    }]}), flush=True)
+    }]
+    for name, (source, replaces, main_case) in LM_KERNEL_ROWS.items():
+        timings = lm_kernels["timings"][name]
+        t = timings[main_case]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": lm_launches[name],
+            "max_abs_err": lm_kernels["errs"][name]["float32"],
+            "max_abs_err_bf16": lm_kernels["errs"][name]["bfloat16"],
+            "case": main_case, "shape": t["shape"], "dtype": t["dtype"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "cases": timings,
+        })
+    return rows
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "csrc" / "stability_score.cu").exists():
+        print(f"chip_smoke: no port sources under {SRC}; run it from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import FULL, get_config
+
+    lm_configs = {arch: get_config(arch) for arch in LM_ARCHS}
+    phase_device_and_build()
+    kernel = phase_kernel("cuda")
+    lm_kernels = phase_lm_kernels(lm_configs, "cuda")
+    served = phase_models(FULL, "cuda")
+    resnet_launches = phase_serving(served, "cuda")
+    del served
+    torch.cuda.empty_cache()
+    phase_lm_models(lm_configs, "cuda")
+    lm_launches = phase_lm_serving(lm_configs, "cuda")
+    print(json.dumps({"kernels": kernel_summary(
+        kernel, resnet_launches, lm_kernels, lm_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

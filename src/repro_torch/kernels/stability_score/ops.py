@@ -11,32 +11,13 @@ import ctypes
 import torch
 
 from repro_torch.core.urgency import DEFAULT_CLIP, TauLike
-from repro_torch.kernels import build, launch_counts
+from repro_torch.kernels import checks, launch_counts
 from repro_torch.kernels.stability_score.ref import stability_scores_plain
 
 KERNEL = "stability_score"
-
-
-def _launcher():
-    fn = build.load(KERNEL).stability_score_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p, ctypes.c_void_p]
 
 
 def stability_scores(w: torch.Tensor, mask: torch.Tensor,
@@ -55,9 +36,7 @@ def stability_scores(w: torch.Tensor, mask: torch.Tensor,
     if w.device.type == "cpu":
         return stability_scores_plain(w, mask, cand_latency, cand_batch,
                                       cand_queue, tau=tau, clip=clip)
-    if w.device.type != "cuda":
-        raise ValueError(f"stability_scores runs on cpu or cuda, not "
-                         f"{w.device}")
+    checks.require_cuda(w, "stability_scores")
     device = w.device
     if w.ndim != 2:
         raise ValueError(f"w must be [M, Q], got shape {tuple(w.shape)}")
@@ -73,27 +52,23 @@ def stability_scores(w: torch.Tensor, mask: torch.Tensor,
         # scalar tau -> filled [M, Q] matrix, as the Pallas wrapper does
         tau_mat = torch.full((m, q), float(tau), dtype=torch.float32,
                              device=device)
-    _check(w, "w", torch.float32, (m, q), device)
-    _check(mask, "mask", torch.float32, (m, q), device)
-    _check(tau_mat, "tau", torch.float32, (m, q), device)
-    _check(lat, "cand_latency", torch.float32, (n,), device)
-    _check(batch, "cand_batch", torch.int32, (n,), device)
+    checks.check(w, "w", torch.float32, (m, q), device)
+    checks.check(mask, "mask", torch.float32, (m, q), device)
+    checks.check(tau_mat, "tau", torch.float32, (m, q), device)
+    checks.check(lat, "cand_latency", torch.float32, (n,), device)
+    checks.check(batch, "cand_batch", torch.int32, (n,), device)
     if cand_queue is None:
         if n != m:
             raise ValueError(f"cand_queue=None needs N == M, got N={n}, M={m}")
         queue_ptr = None
     else:
         queue = cand_queue.to(torch.int32)
-        _check(queue, "cand_queue", torch.int32, (n,), device)
+        checks.check(queue, "cand_queue", torch.int32, (n,), device)
         queue_ptr = queue.data_ptr()
     out = torch.empty(n, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _launcher()(
-            w.data_ptr(), mask.data_ptr(), tau_mat.data_ptr(), lat.data_ptr(),
-            batch.data_ptr(), queue_ptr, n, m, q, float(clip),
-            out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"stability_score launch failed: CUDA error {err}")
+    fn = checks.launcher(KERNEL, "stability_score_launch", _ARGTYPES)
+    checks.run(KERNEL, fn, device, w.data_ptr(), mask.data_ptr(),
+               tau_mat.data_ptr(), lat.data_ptr(), batch.data_ptr(),
+               queue_ptr, n, m, q, float(clip), out.data_ptr())
     launch_counts[KERNEL] += 1
     return out

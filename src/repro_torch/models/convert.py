@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.resnet import ResNetConfig
+from repro_torch.models.transformer import LMConfig
 
 
 def _tensor(a) -> torch.Tensor:
@@ -55,4 +56,46 @@ def resnet_params_from_jax(values_np: Dict[str, Any],
                     norm(f"{prefix}.{name}", blk[name])
     for s in range(4):
         sd[f"exit_head{s}"] = _tensor(values_np[f"exit_head{s}"])
+    return sd
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = ""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def lm_params_from_jax(values_np: Dict[str, Any],
+                       cfg: LMConfig) -> Dict[str, torch.Tensor]:
+    """The reference DecoderLM's value tree (numpy leaves; each segment's
+    leaves stacked on a leading layers axis) -> the state dict of
+    :class:`repro_torch.models.transformer.DecoderLM`.
+
+    Segment ``i``'s stacked leaf ``attn.wq [n, D, H*Dh]`` becomes
+    ``segments.{i}.{l}.attn.wq`` for each of its n layers; ``exit_norms`` is
+    a list in both; ``lm_head`` exists only when the embeddings are untied.
+    Matrices keep their ``[in, out]`` layout. Leaves come back float32;
+    ``load_state_dict`` casts them to the model's dtype.
+    """
+    sd: Dict[str, torch.Tensor] = {"embed": _tensor(values_np["embed"])}
+    for e, gain in enumerate(values_np["exit_norms"]):
+        sd[f"exit_norms.{e}"] = _tensor(gain)
+    if not cfg.tie_embeddings:
+        sd["lm_head"] = _tensor(values_np["lm_head"])
+    segs = cfg.segments()
+    if len(values_np["segments"]) != len(segs):
+        raise ValueError(f"{len(values_np['segments'])} segments, the config "
+                         f"{len(segs)}")
+    for i, ((_, start, end), seg) in enumerate(zip(segs,
+                                                  values_np["segments"])):
+        for path, stacked in _flatten(seg):
+            stacked = np.asarray(stacked)
+            if stacked.shape[0] != end - start:
+                raise ValueError(f"segment {i} {path} stacks "
+                                 f"{stacked.shape[0]} layers, the config "
+                                 f"{end - start}")
+            for layer in range(end - start):
+                sd[f"segments.{i}.{layer}.{path}"] = _tensor(stacked[layer])
     return sd

@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Set)
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ from repro_torch.core.request import Completion, Request
 from repro_torch.core.scheduler import Scheduler
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.models.resnet import EarlyExitResNet, ResNetConfig
+from repro_torch.models.transformer import DecoderLM, LMConfig
 
 
 @dataclasses.dataclass
@@ -54,13 +56,26 @@ class ServedModel:
     num_exits: int
 
 
+def output_devices(out) -> Set[torch.device]:
+    """The devices of every tensor in ``out`` (a tensor, or tuples, lists
+    and dicts of them)."""
+    if isinstance(out, torch.Tensor):
+        return {out.device}
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return set().union(*(output_devices(o) for o in out))
+    return set()
+
+
 def run_quantum(mod: ServedModel, e: int, b: int):
     """One inference of ``mod`` at exit ``e`` and batch ``b``, finished on
-    the device before it returns."""
+    the device before it returns: every device that holds a tensor of the
+    output is synchronised (the reference blocks on the whole output)."""
     with torch.inference_mode():
         out = mod.forward_fn(mod.values, mod.data_fn(b), e)
-    if isinstance(out, torch.Tensor):
-        synchronize(out.device)
+    for device in output_devices(out):
+        synchronize(device)
     return out
 
 
@@ -80,6 +95,34 @@ def serve_resnets(configs: Mapping[str, ResNetConfig], device: DeviceLike = None
             name=name, values=model,
             forward_fn=lambda mod, x, e: mod.forward_exit(x, e),
             data_fn=lambda b: images[:b], num_exits=cfg.num_exits))
+    return served
+
+
+def serve_lms(configs: Mapping[str, LMConfig], device: DeviceLike = None,
+              seed: int = 0, prompt_len: int = 128,
+              max_batch: int = 8) -> List[ServedModel]:
+    """The early-exit LM deployment: one :class:`DecoderLM` per config, in
+    order of increasing cost, as ``examples/serve_multi_model.py`` serves
+    them.
+
+    Model ``i``'s weights come from a generator seeded ``seed + i`` on the
+    device itself, and its payload is a slice of one ``[max_batch,
+    prompt_len]`` token tensor drawn once on the device from the same
+    generator, so a quantum times the forward and not a host copy. A quantum
+    is ``exit_decision``: the trunk through exit e, then the fused exit-head
+    kernel on the last position, giving (token, max logit, logsumexp).
+    """
+    device = resolve_device(device)
+    served = []
+    for i, (name, cfg) in enumerate(configs.items()):
+        gen = torch.Generator(device=device).manual_seed(seed + i)
+        model = DecoderLM(cfg, generator=gen, device=device).eval()
+        tokens = torch.randint(0, cfg.vocab_size, (max_batch, prompt_len),
+                               generator=gen, device=device)
+        served.append(ServedModel(
+            name=name, values=model,
+            forward_fn=lambda mod, x, e: mod.exit_decision({"tokens": x}, e),
+            data_fn=lambda b, _t=tokens: _t[:b], num_exits=cfg.num_exits))
     return served
 
 
@@ -103,9 +146,7 @@ def measure_profile(
     devices = set()
 
     def run_fn(m: int, e: int, b: int):
-        out = run_quantum(models[m], e, b)
-        if isinstance(out, torch.Tensor):
-            devices.add(out.device)
+        devices.update(output_devices(run_quantum(models[m], e, b)))
 
     n_exits = models[0].num_exits
     table = ProfileTable.measure(
