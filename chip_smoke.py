@@ -5,18 +5,19 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
     python3 chip_smoke.py
 
-It drives the port's two live paths end to end, the paper's ResNets and
-the early-exit LMs:
+It drives the port's live paths end to end, the paper's ResNets and the
+early-exit LMs (served quanta and KV-cache decode):
 
-1. device and build: the card's name and power limit, the four CUDA kernels
+1. device and build: the card's name and power limit, the five CUDA kernels
    built from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a`` in one
    parallel round (with each one's ptxas report), TF32 off;
 2. the stability-score kernel against its plain PyTorch version on the card
    (greedy, lattice and many-queue shapes; scalar and per-task tau; two
    clips), its argmin against the float64 numpy backend, and its time;
-3. the LM kernels (rmsnorm, flash attention, the fused exit head) against
-   their plain versions on the card at every served model's shapes, in
-   bfloat16 and float32, ragged S and V included; their times (CUDA-graph
+3. the LM kernels (rmsnorm, flash attention, the fused exit head, decode
+   attention) against their plain versions on the card at every served
+   model's shapes, in bfloat16 and float32, ragged S and V included, and
+   decode attention at the edges of its lengths; their times (CUDA-graph
    replay) beside the bound, the plain version and the library call;
 4. the full-width early-exit ResNet-50/101/152 on the card against the same
    modules on the CPU at every exit;
@@ -27,13 +28,21 @@ the early-exit LMs:
 6. the LMs on the card against the CPU in float32: SmolLM-135M at full
    width and depth at every exit, Phi-4-mini and Qwen3-8B at full width cut
    to 2 layers and one exit;
-7. live LM serving: SmolLM-135M, Phi-4-mini and Qwen3-8B at full width and
+7. KV-cache decode on the card against the CPU in float32, the same models
+   and cuts: prefill, then 16 teacher-forced decode steps; logits and
+   caches against the CPU's, logits against ``forward_exit``;
+8. live LM serving: SmolLM-135M, Phi-4-mini and Qwen3-8B at full width and
    depth in bfloat16, ``measure_profile`` over 3 x 4 x 4 cells, then a 3 s
    Poisson trace at 3:2:1 whose total rate keeps the card 90% busy at the
    final exit and B = 8, served with the ``cuda`` scoring backend and the
    float64 shadow; each LM kernel's launches must equal the count implied
    by the engine's decisions;
-8. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
+9. KV-cache decode of the same three models in bfloat16: B = 1 and 8 at the
+   first and final exit, 32 greedy steps after the 128-token prompt; step
+   time on the host, device time by kernel class, idle share, peak memory;
+   decode-attention and rmsnorm launches must equal the count the steps
+   imply;
+10. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
 
 Each phase prints JSON lines. Any failed check raises, so the script exits
 non-zero before the last line. Without a CUDA device, or outside a checkout
@@ -59,7 +68,8 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
-KERNELS = ("stability_score", "rmsnorm", "flash_attention", "exit_head")
+KERNELS = ("stability_score", "rmsnorm", "flash_attention", "exit_head",
+           "decode_attention")
 OPS_PER_ELEMENT = 8   # add, div, sub, min, exp, min, mul, add per (n, task)
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
@@ -75,6 +85,9 @@ LM_ARCHS = ("smollm-135m", "phi4-mini-3.8b", "qwen3-8b")
 LM_PROMPT = 128
 LM_BATCHES = (1, 2, 4, 8)
 LM_BUSY = 0.9       # card share kept busy at the final exit and B = 8
+DECODE_MAX_LEN = 160  # the decode cache: the 128-token prompt + 32 tokens
+DECODE_STEPS = 32
+DECODE_CHECK = dict(prompt=16, steps=16, max_len=40)  # the float32 check
 
 
 class SmokeFailure(Exception):
@@ -485,11 +498,20 @@ def _bound_ms(nbytes: float, ops: float, rate: float):
 
 def _lm_kernel_cases(configs):
     """(kernel, label, shape) at every served model's shapes (B = 8, S =
-    128; the exit head at every batch of the ladder), ragged S and V, and
-    one long prompt (B = 1, S = 2048) of the last model's attention."""
+    128; the exit head at every batch of the ladder; decode attention at
+    B = 1 and 8 over the 160-slot decode cache), ragged S and V, one long
+    prompt (B = 1, S = 2048) and one long decode cache (B = 8, S = 4096)
+    of the last model's attention. A decode shape is (B, H, K, S, D,
+    cache layout): 1 for the model's views (q of ``[B, 1, H, D]``, k and v
+    of a ``[B, S, K, D]`` cache), 0 for contiguous ``[B, K, S, D]``."""
     b, s = LM_BATCHES[-1], LM_PROMPT
     cases = []
     for arch, cfg in configs.items():
+        heads = (cfg.num_heads, cfg.num_kv_heads)
+        for db in (1, b):
+            cases.append(("decode_attention",
+                          f"{arch}/served" + ("" if db == b else f"_b{db}"),
+                          (db, *heads, DECODE_MAX_LEN, cfg.head_dim_, 1)))
         dh = cfg.head_dim_
         cases.append(("rmsnorm", f"{arch}/residual", (b * s, cfg.d_model)))
         if cfg.qk_norm:
@@ -510,6 +532,17 @@ def _lm_kernel_cases(configs):
     cases.append(("flash_attention", "long_prompt_s2048",
                   (1, last.num_heads, last.num_kv_heads, 2048,
                    last.head_dim_)))
+    heads = (last.num_heads, last.num_kv_heads)
+    cases.append(("decode_attention", "long_cache_s4096",
+                  (b, *heads, 4096, last.head_dim_, 1)))
+    cases.append(("decode_attention", "contiguous_s160",
+                  (b, *heads, DECODE_MAX_LEN, last.head_dim_, 0)))
+    first = list(configs.values())[0]
+    cases.append(("decode_attention", "ragged_s77",
+                  (3, first.num_heads, first.num_kv_heads, 77,
+                   first.head_dim_, 0)))
+    cases.append(("decode_attention", "ragged_s1000",
+                  (2, *heads, 1000, last.head_dim_, 1)))
     return cases
 
 
@@ -527,14 +560,29 @@ def _lm_kernel_inputs(kernel, shape, dtype, device, gen):
     if kernel == "flash_attention":
         b, h, kh, s, d = shape
         return (randn(b, h, s, d), randn(b, kh, s, d), randn(b, kh, s, d))
+    if kernel == "decode_attention":
+        b, h, kh, s, d, cache_layout = shape
+        if cache_layout:
+            q = randn(b, 1, h, d)[:, 0]
+            k, v = (randn(b, s, kh, d).transpose(1, 2) for _ in range(2))
+        else:
+            q, k, v = randn(b, h, d), randn(b, kh, s, d), randn(b, kh, s, d)
+        # ragged rows in [1, S], the last one full
+        lens = torch.randint(1, s + 1, (b,), generator=gen, device=device,
+                             dtype=torch.int32)
+        lens[-1] = s
+        return q, k, v, lens
     t, d, v = shape
     return (randn(t, d), randn(d, scale=0.1, shift=1.0),
             randn(d, v, scale=d ** -0.5))
 
 
-def _lm_kernel_cost(kernel, shape, dtype):
+def _lm_kernel_cost(kernel, shape, dtype, args=None):
     """(bytes, operations, rate) of one call: each input read once, each
-    output written once; causal attention counted at half the square."""
+    output written once; causal attention counted at half the square;
+    decode attention over this call's valid prefixes only (``args``' lengths,
+    clamped to S): K/V read once, 4 D operations per (query head,
+    position)."""
     import torch
 
     el = torch.tensor([], dtype=dtype).element_size()
@@ -545,6 +593,11 @@ def _lm_kernel_cost(kernel, shape, dtype):
         b, h, kh, s, d = shape
         nbytes = (2 * b * h * s * d + 2 * b * kh * s * d) * el
         return nbytes, 4 * b * h * s * s * d / 2, _rate(dtype, True)
+    if kernel == "decode_attention":
+        b, h, kh, s, d, _ = shape
+        valid = float(args[3].clamp(0, s).sum())
+        nbytes = (2 * valid * kh * d + 2 * b * h * d) * el + 4 * b
+        return nbytes, 4 * valid * h * d, _rate(dtype, True)
     t, d, v = shape
     return ((t * d + d + d * v) * el + t * 12, 2 * t * d * v,
             _rate(dtype, True))
@@ -553,6 +606,7 @@ def _lm_kernel_cost(kernel, shape, dtype):
 def _lm_library(kernel, args):
     """One PyTorch call computing the same function, timed as the yardstick
     (the port never calls it); None where there is none."""
+    import torch
     import torch.nn.functional as F
 
     if kernel == "rmsnorm":
@@ -562,6 +616,12 @@ def _lm_library(kernel, args):
         q, k, v = args
         return lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)
+    if kernel == "decode_attention":
+        q, k, v, lens = args
+        keep = (torch.arange(k.shape[2], device=k.device)[None, :]
+                < lens[:, None])[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=keep, enable_gqa=True)
     return None
 
 
@@ -602,11 +662,55 @@ def _lm_compare(kernel, args, got, want, dtype_name, label):
     return err
 
 
+def _decode_edge_checks(cfg, dev, gen):
+    """Decode attention at the edges of its lengths, in both dtypes, with
+    ``cfg``'s heads over a ragged S = 77 cache: length 1 and a length past S
+    against the plain version; K/V past a row's length set to +-1e4 change
+    nothing (``test_cache_tail_is_ignored``); on the card, length 0 gives 0
+    as the Pallas kernel does (the plain version follows the reference's
+    oracle there). Returns {dtype: max abs err}."""
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain,
+    )
+
+    s, errs = 77, {}
+    shape = (4, cfg.num_heads, cfg.num_kv_heads, s, cfg.head_dim_, 1)
+    for dname, dtype in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32)):
+        q, k, v, _ = _lm_kernel_inputs("decode_attention", shape, dtype, dev,
+                                       gen)
+        lens = torch.tensor([1, s + 5, 30, 0], dtype=torch.int32, device=dev)
+        got = decode_attention(q, k, v, lens)
+        synchronize(dev)
+        errs[dname] = _lm_compare(
+            "decode_attention", None, got[:3],
+            decode_attention_plain(q, k, v, lens)[:3], dname, "lengths")
+        if dev.type == "cuda":
+            check(not bool(got[3].any()), f"decode_attention {dname}: "
+                  f"length 0 gave {float(got[3].abs().max())}, not 0")
+        k2, v2 = k.clone(), v.clone()
+        k2[2, :, 30:], v2[2, :, 30:] = 1e4, -1e4
+        k2[0, :, 1:], v2[0, :, 1:] = 1e4, -1e4
+        tail = decode_attention(q, k2, v2, lens)
+        check(torch.equal(tail[:3:2], got[:3:2]),
+              f"decode_attention {dname}: K/V past the length changed the "
+              f"result by {float((tail[:3:2] - got[:3:2]).abs().max())}")
+    return errs
+
+
 def phase_lm_kernels(configs, device):
     """Every LM kernel against its plain version at the served shapes, in
     bfloat16 and float32; bfloat16 times at each shape."""
     import torch
 
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_plain,
+    )
     from repro_torch.kernels.exit_head.ops import exit_head
     from repro_torch.kernels.exit_head.ref import exit_head_plain
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -618,7 +722,9 @@ def phase_lm_kernels(configs, device):
 
     wrappers = {"rmsnorm": (rmsnorm, rmsnorm_plain),
                 "flash_attention": (flash_attention, flash_attention_plain),
-                "exit_head": (exit_head, exit_head_plain)}
+                "exit_head": (exit_head, exit_head_plain),
+                "decode_attention": (decode_attention,
+                                     decode_attention_plain)}
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -635,7 +741,7 @@ def phase_lm_kernels(configs, device):
                 kernel, args, got, want, dname, label))
             if dname != "bfloat16":
                 continue
-            nbytes, ops, rate = _lm_kernel_cost(kernel, shape, dtype)
+            nbytes, ops, rate = _lm_kernel_cost(kernel, shape, dtype, args)
             bound, bound_by = _bound_ms(nbytes, ops, rate)
             lib = _lm_library(kernel, args)
             timings[kernel][label] = dict(
@@ -654,6 +760,10 @@ def phase_lm_kernels(configs, device):
             idx = exit_head(h, torch.ones(16, dtype=dtype, device=dev), w)[0]
             check(idx.tolist() == [127, 127],
                   f"exit_head ties: {idx.tolist()} != [127, 127]")
+    for dname, err in _decode_edge_checks(list(configs.values())[-1], dev,
+                                          gen).items():
+        errs["decode_attention"][dname] = max(
+            errs["decode_attention"][dname], err)
     emit("lm_kernels", max_abs_err=errs, tol=LM_TOL, timings=timings)
     return dict(errs=errs, timings=timings)
 
@@ -749,7 +859,121 @@ def phase_lm_models(configs, device, seq=LM_PROMPT):
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: live LM serving
+# Phase 7: KV-cache decode of the LMs on the card against the CPU, float32
+# ---------------------------------------------------------------------------
+
+
+def _decode_cache(model, prefill_cache, batch_size, max_len, exit_idx):
+    """``init_cache`` buffers holding a prefill's caches."""
+    cache = model.init_cache(batch_size, max_len, exit_idx)
+    for buf, seg in zip(cache["segments"], prefill_cache["segments"]):
+        n = seg["k"].shape[2]
+        buf["k"][:, :, :n] = seg["k"]
+        buf["v"][:, :, :n] = seg["v"]
+        buf["len"][:] = seg["len"]
+    return cache
+
+
+def _teacher_forced(model, tokens, prompt, max_len, exit_idx):
+    """Prefill ``tokens[:, :prompt]``, then decode the rest one token at a
+    time. Returns (the prefill's and every step's logits ``[B, 1 + steps,
+    V]``, the final cache), on the CPU."""
+    import torch
+
+    dev = model.embed.device
+    tokens = tokens.to(dev)
+    with torch.inference_mode():
+        logits, pref = model.prefill({"tokens": tokens[:, :prompt]},
+                                     exit_idx)
+        cache = _decode_cache(model, pref, tokens.shape[0], max_len,
+                              exit_idx)
+        outs = [logits]
+        for i in range(prompt, tokens.shape[1]):
+            logits, cache = model.decode_step(tokens[:, i:i + 1], cache,
+                                              exit_idx)
+            outs.append(logits)
+    cpu = {"segments": [{key: t.cpu() for key, t in seg.items()}
+                        for seg in cache["segments"]]}
+    return torch.cat(outs, dim=1).cpu(), cpu
+
+
+def phase_lm_decode_models(configs, device, prompt=DECODE_CHECK["prompt"],
+                           steps=DECODE_CHECK["steps"],
+                           max_len=DECODE_CHECK["max_len"]):
+    """The decode path in float32, card against CPU: SmolLM (the first
+    config) at full width and depth, every exit; the others at full width
+    cut to 2 layers and one exit. Each prefills a ``prompt``-token prompt,
+    copies its caches into ``init_cache(2, max_len)`` buffers and decodes
+    ``steps`` teacher-forced tokens. The card's logits and caches must
+    equal the CPU's, and the card's logits ``forward_exit``'s over the whole
+    sequence at the same positions (the reference's own check,
+    ``tests/test_models.py:80``), within 2e-3."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import DecoderLM
+
+    t0 = time.perf_counter()
+    tol = LM_TOL["float32"]
+    errs, cuts = {}, {}
+    for i, (arch, cfg) in enumerate(configs.items()):
+        if i == 0:
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+            exits = range(cfg.num_exits)
+        else:
+            cfg32 = dataclasses.replace(cfg, num_layers=2, exits=(2,),
+                                        dtype=torch.float32)
+            exits = (0,)
+            cuts[arch] = "2 layers, one exit"
+        gen = torch.Generator(device=device).manual_seed(17 + i)
+        model = DecoderLM(cfg32, generator=gen, device=device).eval()
+        tokens = torch.randint(0, cfg.vocab_size, (2, prompt + steps),
+                               generator=torch.Generator().manual_seed(i))
+        card, full = {}, {}
+        for e in exits:
+            card[e] = _teacher_forced(model, tokens, prompt, max_len, e)
+            with torch.inference_mode():
+                full[e] = model.forward_exit(
+                    {"tokens": tokens.to(device)}, e)[:, prompt - 1:].cpu()
+        model = model.to("cpu")
+        for e in exits:
+            label = f"{arch}/exit{e}"
+            got, got_cache = card[e]
+            want, want_cache = _teacher_forced(model, tokens, prompt,
+                                               max_len, e)
+            check(got.shape == (2, steps + 1, cfg.vocab_padded)
+                  and bool(torch.isfinite(got).all()),
+                  f"{label}: decode logits {tuple(got.shape)} or not finite")
+            e_cpu = float((got - want).abs().max())
+            e_full = float((got - full[e]).abs().max())
+            check(torch.allclose(got, want, rtol=tol, atol=tol),
+                  f"{label}: card and CPU decode logits differ by {e_cpu}")
+            check(torch.allclose(got, full[e], rtol=tol, atol=tol),
+                  f"{label}: decode and forward_exit differ by {e_full}")
+            e_cache = 0.0
+            for g, w in zip(got_cache["segments"], want_cache["segments"]):
+                check(torch.equal(g["len"], w["len"])
+                      and int(g["len"].min()) == prompt + steps,
+                      f"{label}: cache lengths {g['len'].tolist()}")
+                for key in ("k", "v"):
+                    check(torch.allclose(g[key], w[key], rtol=tol, atol=tol),
+                          f"{label}: card and CPU cache {key} differ")
+                    e_cache = max(e_cache,
+                                  float((g[key] - w[key]).abs().max()))
+            errs[label] = dict(logits_vs_cpu=e_cpu, cache_vs_cpu=e_cache,
+                               logits_vs_forward_exit=e_full)
+        del model, card, full
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    emit("lm_decode_models", max_abs_err=errs, tol=tol, batch=2,
+         prompt=prompt, steps=steps, max_len=max_len, cut=cuts,
+         seconds=time.perf_counter() - t0)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: live LM serving
 # ---------------------------------------------------------------------------
 
 
@@ -862,17 +1086,31 @@ def phase_lm_serving(configs, device, horizon=HORIZON_S):
               f"decisions")
     shadow_check("lm_shadow", scored, table, max_batch=LM_BATCHES[-1])
     lm_breakdown(served)
-    return launches
+    return launches, served
 
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
-    for key in ("rmsnorm", "flash_attention", "exit_head"):
+    for key in ("rmsnorm", "flash_attention", "exit_head", "decode_attention"):
         if key in low:
             return key
     if any(k in low for k in ("gemm", "cutlass", "nvjet", "xmma", "cublas")):
         return "matmul"
     return "other"
+
+
+def _device_ms_by_class(prof):
+    """Device time (ms) and kernel count by class from a profiler run."""
+    import torch
+
+    by_class, counts = {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        cls = _kernel_class(evt.name)
+        by_class[cls] = by_class.get(cls, 0.0) + evt.device_time_total / 1e3
+        counts[cls] = counts.get(cls, 0) + 1
+    return by_class, counts
 
 
 def lm_breakdown(served):
@@ -881,7 +1119,6 @@ def lm_breakdown(served):
     quantum under ``torch.profiler`` the device time of its kernels by class
     (our three kernels, matrix products, the rest); idle share = 1 - device
     time / quantum time."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime.server import run_quantum
@@ -899,14 +1136,7 @@ def lm_breakdown(served):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 run_quantum(mod, e, b)
-            by_class, counts = {}, {}
-            for evt in prof.events():
-                if evt.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                cls = _kernel_class(evt.name)
-                by_class[cls] = by_class.get(cls, 0.0) + (
-                    evt.device_time_total / 1e3)
-                counts[cls] = counts.get(cls, 0) + 1
+            by_class, counts = _device_ms_by_class(prof)
             device_ms = sum(by_class.values())
             rows[f"{mod.name}/final/B{b}"] = dict(
                 quantum_ms=wall_ms, device_ms=device_ms,
@@ -914,6 +1144,116 @@ def lm_breakdown(served):
                 device_ms_by_class=by_class, kernels_by_class=counts)
     emit("lm_breakdown", rows=rows)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: KV-cache decode of the served LMs, bfloat16, full size
+# ---------------------------------------------------------------------------
+
+
+def _decode_launches_implied(cfg, exit_idx, steps):
+    """Launches a run of decode steps implies: decode attention L_e a
+    step; rmsnorm 2 L_e (+2 L_e with q/k norm) + 1 (the exit norm)."""
+    layers = cfg.exits[exit_idx]
+    return {"decode_attention": steps * layers,
+            "rmsnorm": steps * (2 * layers * (2 if cfg.qk_norm else 1) + 1)}
+
+
+def phase_lm_decode(served, device, steps=DECODE_STEPS,
+                    max_len=DECODE_MAX_LEN):
+    """The decode path of the served models at full width and depth in
+    bfloat16: for B in {1, 8} at the first and the final exit, prefill the
+    served 128-token prompt, copy the caches into ``init_cache(B,
+    max_len)`` and decode ``steps`` greedy tokens. Per run: the median host
+    time of a step (clock around the step and a synchronise, without the
+    profiler), one step under ``torch.profiler`` for the device time of its
+    kernels by class and the idle share (1 - device / host), the peak
+    memory, and the launches of the steps, which must equal the count the
+    steps imply. Logits must be finite and tokens in the vocabulary; the
+    last step's logits against ``forward_exit`` over the whole sequence are
+    reported, not held (the float32 phase holds the numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    rows, launches, implied = {}, {}, {}
+    for mod in served:
+        model, cfg = mod.values, mod.values.cfg
+        for b in (1, LM_BATCHES[-1]):
+            prompt = mod.data_fn(b)
+            for e in (0, cfg.num_exits - 1):
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                with torch.inference_mode():
+                    logits, pref = model.prefill({"tokens": prompt}, e)
+                    cache = _decode_cache(model, pref, b, max_len, e)
+                    del pref
+                    tok = logits.argmax(-1)
+                    generated, finite, walls = [tok], [], []
+                    synchronize(dev)
+                    reset_launch_counts()
+                    for i in range(steps):
+                        if i == steps // 2:
+                            with profile(activities=[
+                                    ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA]) as prof:
+                                logits, cache = model.decode_step(tok, cache,
+                                                                  e)
+                                synchronize(dev)
+                        else:
+                            t0 = time.perf_counter()
+                            logits, cache = model.decode_step(tok, cache, e)
+                            synchronize(dev)
+                            walls.append(time.perf_counter() - t0)
+                        finite.append(torch.isfinite(logits).all())
+                        tok = logits.argmax(-1)
+                        generated.append(tok)
+                    counts = {k: launch_counts[k] for k in
+                              ("decode_attention", "rmsnorm")}
+                    seq = torch.cat([prompt] + generated[:-1], dim=1)
+                    full = model.forward_exit({"tokens": seq}, e)[:, -1]
+                    last = logits[:, 0]
+                    vs_full = dict(
+                        max_abs=float((last - full).abs().max()),
+                        top1_agree=float((last.argmax(-1) == full.argmax(-1))
+                                         .float().mean()))
+                gen_tokens = torch.cat(generated, dim=1)
+                label = f"{mod.name}/exit{e}/B{b}"
+                want = _decode_launches_implied(cfg, e, steps)
+                for k, n in counts.items():
+                    launches[k] = launches.get(k, 0) + n
+                    implied[k] = implied.get(k, 0) + want[k]
+                by_class, kcounts = _device_ms_by_class(prof)
+                host_ms = float(np.median(walls)) * 1e3
+                device_ms = sum(by_class.values())
+                rows[label] = dict(
+                    layers=cfg.exits[e], step_host_ms=host_ms,
+                    step_device_ms=device_ms,
+                    idle_share=1.0 - device_ms / host_ms,
+                    device_ms_by_class=by_class, kernels_by_class=kcounts,
+                    peak_memory_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                    if on_card else None),
+                    launches=counts, launches_implied=want,
+                    last_step_vs_forward_exit=vs_full)
+                check(bool(torch.stack(finite).all()),
+                      f"{label}: decode logits not finite")
+                check(bool(((gen_tokens >= 0)
+                            & (gen_tokens < cfg.vocab_size)).all()),
+                      f"{label}: a token outside the vocabulary")
+                del cache, logits, full
+    emit("lm_decode", steps=steps, prompt=LM_PROMPT, max_len=max_len,
+         rows=rows, launches=launches, launches_implied=implied,
+         seconds=time.perf_counter() - t_phase)
+    for label, row in rows.items():
+        for k, n in row["launches_implied"].items():
+            check(row["launches"][k] == n, f"{label}: {k} launches "
+                  f"{row['launches'][k]} != {n} implied by the steps")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -931,12 +1271,17 @@ LM_KERNEL_ROWS = {
     "exit_head": ("src/repro_torch/csrc/exit_head.cu",
                   "src/repro/kernels/exit_head/kernel.py:28",
                   f"{LM_ARCHS[-1]}/served"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:26",
+                         f"{LM_ARCHS[-1]}/served"),
 }
 
 
-def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches):
+def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches,
+                   decode_launches):
     """One entry per kernel of the port's paths, with every key of the
-    contract; the stability score's launches are both serving runs'."""
+    contract; the stability score's launches are both serving runs', and
+    rmsnorm's those of the LM serve and the decode phase."""
     t3 = kernel["timings"]["m3"]
     t256 = kernel["timings"]["m256"]
     rows = [{
@@ -964,9 +1309,12 @@ def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches):
     for name, (source, replaces, main_case) in LM_KERNEL_ROWS.items():
         timings = lm_kernels["timings"][name]
         t = timings[main_case]
+        paths = {"lm_serve": lm_launches.get(name, 0),
+                 "lm_decode": decode_launches.get(name, 0)}
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": lm_launches[name],
+            "replaces": replaces, "launches": sum(paths.values()),
+            **{f"launches_{p}": n for p, n in paths.items()},
             "max_abs_err": lm_kernels["errs"][name]["float32"],
             "max_abs_err_bf16": lm_kernels["errs"][name]["bfloat16"],
             "case": main_case, "shape": t["shape"], "dtype": t["dtype"],
@@ -1003,9 +1351,13 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     phase_lm_models(lm_configs, "cuda")
-    lm_launches = phase_lm_serving(lm_configs, "cuda")
+    phase_lm_decode_models(lm_configs, "cuda")
+    lm_launches, served = phase_lm_serving(lm_configs, "cuda")
+    decode_launches = phase_lm_decode(served, "cuda")
+    del served
     print(json.dumps({"kernels": kernel_summary(
-        kernel, resnet_launches, lm_kernels, lm_launches)}), flush=True)
+        kernel, resnet_launches, lm_kernels, lm_launches,
+        decode_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

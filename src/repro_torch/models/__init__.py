@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.models.convert import (
+    lm_cache_from_jax,
     lm_params_from_jax,
     resnet_params_from_jax,
 )
@@ -34,4 +35,5 @@ def build_model(cfg: LMConfig, generator: Optional[torch.Generator] = None,
 
 
 __all__ = ["DecoderLM", "EarlyExitResNet", "LMConfig", "ResNetConfig",
-           "build_model", "lm_params_from_jax", "resnet_params_from_jax"]
+           "build_model", "lm_cache_from_jax", "lm_params_from_jax",
+           "resnet_params_from_jax"]

@@ -1,4 +1,4 @@
-"""Parameter conversion from the reference's trees to the port's modules.
+"""Conversion from the reference's trees to the port's modules and state.
 
 The reference keeps parameters as nested dicts and lists of arrays; the
 port keeps them in ``nn.Module`` state dicts. The converters take the
@@ -12,6 +12,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.resnet import ResNetConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -99,3 +100,35 @@ def lm_params_from_jax(values_np: Dict[str, Any],
             for layer in range(end - start):
                 sd[f"segments.{i}.{layer}.{path}"] = _tensor(stacked[layer])
     return sd
+
+
+def _state_tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype on ``device``; bfloat16
+    leaves (numpy's ml_dtypes type) go through their 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a.view(np.uint16)).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_cache_from_jax(cache_np: Dict[str, Any],
+                      device: DeviceLike) -> Dict[str, Any]:
+    """The reference DecoderLM's decode cache (numpy leaves) -> the port's:
+    ``{"segments": [{"k", "v" [n, B, Smax, K, Dh], "len" [n, B] int32}]}``
+    with the leaves' dtypes, on ``device`` (the card unless the caller
+    passes ``"cpu"``). The state counterpart of :func:`lm_params_from_jax`:
+    both models can start from one cache, rows of different lengths
+    included."""
+    device = resolve_device(device)
+    segments = []
+    for seg in cache_np["segments"]:
+        if set(seg) != {"k", "v", "len"}:
+            raise ValueError(f"a dense segment cache holds k, v and len, "
+                             f"not {sorted(seg)}")
+        segments.append({
+            "k": _state_tensor(seg["k"], device),
+            "v": _state_tensor(seg["v"], device),
+            "len": _state_tensor(seg["len"], device).to(torch.int32),
+        })
+    return {"segments": segments}

@@ -8,20 +8,22 @@ exit head (per-exit RMSNorm + the shared unembedding) sits at each
 boundary, so exiting early skips the remaining layers: the paper's latency
 lever.
 
-Three ways out of the trunk:
+Four ways out of the trunk:
 
 * ``forward_exit`` — every position's float32 logits (the reference's);
 * ``prefill`` — the last position's logits plus the per-segment stacked KV
   caches (the reference's);
 * ``exit_decision`` — the served quantum: the trunk, then the fused
   exit-head kernel on the last position, giving (top-1 token, max logit,
-  logsumexp) without the ``[B, V]`` logits.
+  logsumexp) without the ``[B, V]`` logits;
+* ``decode_step`` — one token against the cache of ``init_cache`` (the
+  reference's), written in place.
 
-On the card the norms, the attention and the exit head are the port's CUDA
-kernels; the large products (Q/K/V/O, the MLP, the logits of
-``forward_exit``/``prefill``) stay ``torch.matmul``, as the reference leaves
-them to XLA. The MoE and MLA families, ``decode_step`` and ``init_cache``
-wait for later slices and raise ``NotImplementedError``.
+On the card the norms, the attention (prefill and decode) and the exit head
+are the port's CUDA kernels; the large products (Q/K/V/O, the MLP, the
+logits of ``forward_exit``/``prefill``/``decode_step``) stay
+``torch.matmul``, as the reference leaves them to XLA. The MoE and MLA
+families wait for later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -202,11 +204,13 @@ class Block(nn.Module):
 
 
 def _block_apply(blk: Block, h: torch.Tensor, cfg: LMConfig,
-                 make_cache: bool) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One pre-norm block. Returns (h, new_cache)."""
+                 make_cache: bool, cache: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One pre-norm block, decoding against ``cache`` when one is given.
+    Returns (h, new_cache)."""
     attn_in = rms_norm(h, blk.norm1, cfg.norm_eps)
     attn_out, new_cache = attention(
-        blk.attn, attn_in, cfg.attn_config(),
+        blk.attn, attn_in, cfg.attn_config(), cache=cache,
         position=0 if make_cache else None)
     h = h + attn_out
     ffn_in = rms_norm(h, blk.norm2, cfg.norm_eps)
@@ -298,18 +302,34 @@ class DecoderLM(nn.Module):
         logits = (h @ self._unembedding().to(h.dtype)).to(torch.float32)
         return mask_padded_vocab(logits, cfg.vocab_size)
 
-    def _run_segment(self, seg: int, h: torch.Tensor, make_cache: bool
+    def _run_segment(self, seg: int, h: torch.Tensor, make_cache: bool,
+                     caches: Optional[dict] = None
                      ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Run one segment's blocks in order. With ``make_cache`` the
         per-layer caches come back stacked on a leading layers axis, as the
-        reference's scan stacks them."""
-        caches = []
-        for blk in self.segments[seg]:
-            h, cache = _block_apply(blk, h, self.cfg, make_cache)
-            caches.append(cache)
+        reference's scan stacks them. With ``caches`` (decode), layer ``l``
+        gets the views ``k[l]``, ``v[l]``, ``len[l]`` of the stacked
+        ``[n, B, Smax, K, Dh]`` / ``[n, B]`` cache, so its in-place writes
+        land in the stack; the segment's k/v come back as those same
+        tensors, with the advanced lengths stacked."""
+        blocks = self.segments[seg]
+        if caches is not None and caches["k"].shape[0] != len(blocks):
+            raise ValueError(f"segment {seg} cache stacks "
+                             f"{caches['k'].shape[0]} layers, the model "
+                             f"{len(blocks)}")
+        new_caches = []
+        for layer, blk in enumerate(blocks):
+            layer_cache = None if caches is None else {
+                key: caches[key][layer] for key in ("k", "v", "len")}
+            h, cache = _block_apply(blk, h, self.cfg, make_cache,
+                                    layer_cache)
+            new_caches.append(cache)
+        if caches is not None:
+            return h, {"k": caches["k"], "v": caches["v"],
+                       "len": torch.stack([c["len"] for c in new_caches])}
         if not make_cache:
             return h, None
-        return h, {key: torch.stack([c[key] for c in caches])
+        return h, {key: torch.stack([c[key] for c in new_caches])
                    for key in ("k", "v", "len")}
 
     def trunk(self, batch: Dict[str, torch.Tensor], exit_idx: int,
@@ -351,12 +371,50 @@ class DecoderLM(nn.Module):
         return exit_head(h[:, -1, :].contiguous(), self.exit_norms[exit_idx],
                          self.exit_head_weight(), eps=self.cfg.norm_eps)
 
-    def decode_step(self, token, cache, exit_idx: int):
-        raise NotImplementedError(
-            "decode_step (the KV-cache path and the decode-attention kernel) "
-            "is the next slice of the port")
+    def decode_step(self, token: torch.Tensor, cache: dict, exit_idx: int
+                    ) -> Tuple[torch.Tensor, dict]:
+        """One decode step through exit ``exit_idx``: token ``[B, 1]``
+        (or ``[B, 1, D]`` embeds) against ``cache = {"segments": [stacked
+        per segment]}`` from :meth:`init_cache` (lengths live inside the
+        per-layer caches). Returns (float32 logits ``[B, 1, V_padded]``,
+        the new cache).
+
+        The k/v of the step are written into the cache's tensors in place;
+        the returned cache holds those same tensors and new lengths (the
+        reference returns a new tree and donates the old one under
+        ``jit``)."""
+        cfg = self.cfg
+        batch = {"embeds": token} if token.ndim == 3 else {"tokens": token}
+        h = self._embed(batch)
+        n_segs = cfg.exit_segment_index(exit_idx)
+        if len(cache["segments"]) < n_segs:
+            raise ValueError(f"the cache holds {len(cache['segments'])} "
+                             f"segments, exit {exit_idx} runs {n_segs}")
+        new_caches = []
+        for i in range(n_segs):
+            h, seg_cache = self._run_segment(i, h, False,
+                                             cache["segments"][i])
+            new_caches.append(seg_cache)
+        return self._head(h, exit_idx), {"segments": new_caches}
 
     def init_cache(self, batch_size: int, max_len: int, exit_idx: int,
-                   dtype=None):
-        raise NotImplementedError(
-            "init_cache (the KV-cache path) is the next slice of the port")
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        """Zero-filled decode cache on the model's device: per segment
+        through exit ``exit_idx``, k and v ``[n, B, max_len, K, Dh]`` in
+        ``dtype`` (default the model's) and ``len`` int32 ``[n, B]``, the
+        reference's shapes."""
+        cfg = self.cfg
+        dtype = dtype or cfg.dtype
+        device = self.embed.device
+        caches = []
+        for _, start, end in cfg.segments()[:cfg.exit_segment_index(
+                exit_idx)]:
+            shape = (end - start, batch_size, max_len, cfg.num_kv_heads,
+                     cfg.head_dim_)
+            caches.append({
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "len": torch.zeros((end - start, batch_size),
+                                   dtype=torch.int32, device=device),
+            })
+        return {"segments": caches}

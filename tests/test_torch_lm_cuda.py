@@ -1,5 +1,5 @@
-"""The LM path's CUDA kernels and models on the card against their plain
-versions on the CPU.
+"""The LM path's CUDA kernels and models (prefill and decode) on the card
+against their plain versions on the CPU.
 
 This file imports neither JAX nor the reference package, so it runs on a
 machine with a card and no JAX::
@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 from repro_torch.kernels.exit_head.ops import exit_head
 from repro_torch.kernels.exit_head.ref import exit_head_logits, exit_head_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -169,3 +171,110 @@ def test_served_quantum_launches_each_kernel(card):
     assert launch_counts["rmsnorm"] == 4 * layers
     assert launch_counts["flash_attention"] == layers
     assert launch_counts["exit_head"] == 1
+
+
+def _decode_inputs(rng, b, h, kh, s, d, dtype, cache_layout):
+    """q ``[B, H, D]``, k, v ``[B, K, S, D]`` and per-row lengths in [1, S]
+    (the last row S) on the CPU; with ``cache_layout`` q and k, v are the
+    model's views (``[B, 1, H, D][:, 0]``, ``[B, S, K, D]`` transposed)."""
+    if cache_layout:
+        q = _randn(rng, b, 1, h, d, dtype=dtype)[:, 0]
+        k, v = (_randn(rng, b, s, kh, d, dtype=dtype).transpose(1, 2)
+                for _ in range(2))
+    else:
+        q = _randn(rng, b, h, d, dtype=dtype)
+        k, v = (_randn(rng, b, kh, s, d, dtype=dtype) for _ in range(2))
+    lens = rng.integers(1, s + 1, b)
+    lens[-1] = s
+    return q, k, v, torch.from_numpy(lens.astype(np.int32))
+
+
+def _on(card, t):
+    """``t`` on the card with the same strides (a view stays a view)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=card).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,s,d,cache_layout", [
+    (1, 9, 3, 160, 64, True), (8, 9, 3, 160, 64, True),      # SmolLM-135M
+    (1, 24, 8, 160, 128, True), (8, 24, 8, 160, 128, True),  # Phi-4-mini
+    (1, 32, 8, 160, 128, True), (8, 32, 8, 160, 128, True),  # Qwen3-8B
+    (2, 32, 8, 4096, 128, True),                             # long cache
+    (3, 4, 2, 77, 32, False), (2, 16, 2, 1000, 16, False),   # ragged S, G=8
+    (2, 6, 2, 1, 64, False),
+])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_matches_plain(card, b, h, kh, s, d, cache_layout,
+                                        dtype):
+    rng = np.random.default_rng(s + h)
+    q, k, v, lens = _decode_inputs(rng, b, h, kh, s, d, dtype, cache_layout)
+    reset_launch_counts()
+    got = decode_attention(*(_on(card, t) for t in (q, k, v, lens)))
+    torch.cuda.synchronize()
+    assert launch_counts["decode_attention"] == 1 and got.dtype == dtype
+    _close(got, decode_attention_plain(q, k, v, lens), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_lengths_and_tail(card, dtype):
+    """Length 1 reads the first value; a length past S reads all of S; K/V
+    past the length (set to +-1e4) change nothing; length 0 gives 0, as
+    the Pallas kernel does."""
+    rng = np.random.default_rng(3)
+    q, k, v, _ = _decode_inputs(rng, 4, 8, 2, 100, 32, dtype, False)
+    lens = torch.tensor([1, 101, 40, 0], dtype=torch.int32)
+    qc, kc, vc, lc = (t.to(card) for t in (q, k, v, lens))
+    got = decode_attention(qc, kc, vc, lc)
+    want = decode_attention_plain(q, k, v, lens)
+    _close(got[:3], want[:3], dtype)
+    assert not bool(got[3].any())
+    kc[:, :, 40:] = 1e4
+    vc[:, :, 40:] = -1e4
+    kc[0, :, 1:], vc[0, :, 1:] = 1e4, -1e4
+    tail = decode_attention(qc, kc, vc, lc)
+    assert torch.equal(tail[0], got[0]) and torch.equal(tail[2], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_smoke_decode_on_card_matches_cpu(card, arch):
+    """Prefill, then 6 decode steps of the SMOKE model on the card against
+    the same weights on the CPU, in logits and caches; each step launches
+    decode attention L_e times and rmsnorm 2 L_e (+2 L_e) + 1 times."""
+    cfg = get_config(arch, smoke=True)
+    model = DecoderLM(cfg, generator=torch.Generator(card).manual_seed(0),
+                      device=card)
+    twin = DecoderLM(cfg, device="cpu")
+    twin.load_state_dict(model.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 16)))
+    e = cfg.num_exits - 1
+    layers = cfg.exits[e]
+    caches = []
+    with torch.inference_mode():
+        for m in (model, twin):
+            dev = m.embed.device
+            _, pref = m.prefill({"tokens": tokens[:, :10].to(dev)}, e)
+            cache = m.init_cache(2, 19, e)
+            for buf, seg in zip(cache["segments"], pref["segments"]):
+                buf["k"][:, :, :10] = seg["k"]
+                buf["v"][:, :, :10] = seg["v"]
+                buf["len"][:] = seg["len"]
+            caches.append(cache)
+        for i in range(10, 16):
+            reset_launch_counts()
+            got, caches[0] = model.decode_step(tokens[:, i:i + 1].to(card),
+                                               caches[0], e)
+            torch.cuda.synchronize()
+            assert launch_counts["decode_attention"] == layers
+            assert launch_counts["rmsnorm"] == 2 * layers * (
+                2 if cfg.qk_norm else 1) + 1
+            want, caches[1] = twin.decode_step(tokens[:, i:i + 1], caches[1],
+                                               e)
+            _close(got, want, torch.float32)
+    for g, w in zip(*(c["segments"] for c in caches)):
+        _close(g["k"], w["k"], torch.float32)
+        _close(g["v"], w["v"], torch.float32)
+        assert torch.equal(g["len"].cpu(), w["len"])
