@@ -18,7 +18,9 @@ early-exit LMs (served quanta and KV-cache decode):
    attention) against their plain versions on the card at every served
    model's shapes, in bfloat16 and float32, ragged S and V included, and
    decode attention at the edges of its lengths; their times (CUDA-graph
-   replay) beside the bound, the plain version and the library call;
+   replay) beside the bound, the plain version and the library call
+   (flash attention in both dtypes: bfloat16 runs on the tensor cores,
+   float32 on the CUDA cores);
 4. the full-width early-exit ResNet-50/101/152 on the card against the same
    modules on the CPU at every exit;
 5. live ResNet serving: ``measure_profile`` over the 120-cell table, then
@@ -88,6 +90,9 @@ LM_BUSY = 0.9       # card share kept busy at the final exit and B = 8
 DECODE_MAX_LEN = 160  # the decode cache: the 128-token prompt + 32 tokens
 DECODE_STEPS = 32
 DECODE_CHECK = dict(prompt=16, steps=16, max_len=40)  # the float32 check
+# (kernel, case) also timed in float32: flash attention has a tensor-core
+# kernel for bfloat16 and a CUDA-core one for float32
+F32_TIMED = {("flash_attention", f"{LM_ARCHS[-1]}/prefill")}
 
 
 class SmokeFailure(Exception):
@@ -164,7 +169,7 @@ def phase_device_and_build():
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in build.BUILD_LOG.get(
         name, {}).get("ptxas", "").splitlines()
-        if "registers" in ln or "spill" in ln]
+        if "registers" in ln or "spill" in ln or "entry function" in ln]
         for name in KERNELS}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -501,9 +506,12 @@ def _lm_kernel_cases(configs):
     128; the exit head at every batch of the ladder; decode attention at
     B = 1 and 8 over the 160-slot decode cache), ragged S and V, one long
     prompt (B = 1, S = 2048) and one long decode cache (B = 8, S = 4096)
-    of the last model's attention. A decode shape is (B, H, K, S, D,
-    cache layout): 1 for the model's views (q of ``[B, 1, H, D]``, k and v
-    of a ``[B, S, K, D]`` cache), 0 for contiguous ``[B, K, S, D]``."""
+    of the last model's attention; for flash attention also the last
+    model's B = 1 prefill (the B = 1 quanta), a block boundary (S = 129)
+    and a non-causal case. An attention shape is (B, H, K, S, D, causal).
+    A decode shape is (B, H, K, S, D, cache layout): 1 for the model's
+    views (q of ``[B, 1, H, D]``, k and v of a ``[B, S, K, D]`` cache), 0
+    for contiguous ``[B, K, S, D]``."""
     b, s = LM_BATCHES[-1], LM_PROMPT
     cases = []
     for arch, cfg in configs.items():
@@ -518,9 +526,9 @@ def _lm_kernel_cases(configs):
             cases.append(("rmsnorm", f"{arch}/qk",
                           (b * s * cfg.num_heads, dh)))
         cases.append(("flash_attention", f"{arch}/prefill",
-                      (b, cfg.num_heads, cfg.num_kv_heads, s, dh)))
+                      (b, cfg.num_heads, cfg.num_kv_heads, s, dh, True)))
         cases.append(("flash_attention", f"{arch}/ragged_s77",
-                      (2, cfg.num_heads, cfg.num_kv_heads, 77, dh)))
+                      (2, cfg.num_heads, cfg.num_kv_heads, 77, dh, True)))
         for t in LM_BATCHES:
             cases.append(("exit_head",
                           f"{arch}/served" + ("" if t == b else f"_t{t}"),
@@ -529,10 +537,15 @@ def _lm_kernel_cases(configs):
                       (3, cfg.d_model, cfg.vocab_size - 5)))
     cases.append(("rmsnorm", "ragged_t1000", (1000, 4096)))
     last = list(configs.values())[-1]
-    cases.append(("flash_attention", "long_prompt_s2048",
-                  (1, last.num_heads, last.num_kv_heads, 2048,
-                   last.head_dim_)))
     heads = (last.num_heads, last.num_kv_heads)
+    cases.append(("flash_attention", "long_prompt_s2048",
+                  (1, *heads, 2048, last.head_dim_, True)))
+    cases.append(("flash_attention", f"{LM_ARCHS[-1]}/prefill_b1",
+                  (1, *heads, s, last.head_dim_, True)))
+    cases.append(("flash_attention", "boundary_s129",
+                  (2, *heads, 129, last.head_dim_, True)))
+    cases.append(("flash_attention", "noncausal_s128",
+                  (2, *heads, s, last.head_dim_, False)))
     cases.append(("decode_attention", "long_cache_s4096",
                   (b, *heads, 4096, last.head_dim_, 1)))
     cases.append(("decode_attention", "contiguous_s160",
@@ -558,8 +571,9 @@ def _lm_kernel_inputs(kernel, shape, dtype, device, gen):
         t, d = shape
         return (randn(t, d, scale=3.0), randn(d, scale=0.2, shift=1.0))
     if kernel == "flash_attention":
-        b, h, kh, s, d = shape
-        return (randn(b, h, s, d), randn(b, kh, s, d), randn(b, kh, s, d))
+        b, h, kh, s, d, causal = shape
+        return (randn(b, h, s, d), randn(b, kh, s, d), randn(b, kh, s, d),
+                causal)
     if kernel == "decode_attention":
         b, h, kh, s, d, cache_layout = shape
         if cache_layout:
@@ -579,7 +593,9 @@ def _lm_kernel_inputs(kernel, shape, dtype, device, gen):
 
 def _lm_kernel_cost(kernel, shape, dtype, args=None):
     """(bytes, operations, rate) of one call: each input read once, each
-    output written once; causal attention counted at half the square;
+    output written once; causal attention counted at half the square
+    (the float32 kernel's rate is the float32 units', the bfloat16 one's
+    the tensor cores');
     decode attention over this call's valid prefixes only (``args``' lengths,
     clamped to S): K/V read once, 4 D operations per (query head,
     position)."""
@@ -590,9 +606,10 @@ def _lm_kernel_cost(kernel, shape, dtype, args=None):
         t, d = shape
         return (2 * t * d + d) * el, 4 * t * d, _rate(dtype, False)
     if kernel == "flash_attention":
-        b, h, kh, s, d = shape
+        b, h, kh, s, d, causal = shape
         nbytes = (2 * b * h * s * d + 2 * b * kh * s * d) * el
-        return nbytes, 4 * b * h * s * s * d / 2, _rate(dtype, True)
+        ops = 4 * b * h * s * s * d / (2 if causal else 1)
+        return nbytes, ops, _rate(dtype, True)
     if kernel == "decode_attention":
         b, h, kh, s, d, _ = shape
         valid = float(args[3].clamp(0, s).sum())
@@ -613,9 +630,9 @@ def _lm_library(kernel, args):
         x, g = args
         return lambda: F.rms_norm(x, (x.shape[-1],), weight=g, eps=1e-6)
     if kernel == "flash_attention":
-        q, k, v = args
+        q, k, v, causal = args
         return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)
+            q, k, v, is_causal=causal, enable_gqa=True)
     if kernel == "decode_attention":
         q, k, v, lens = args
         keep = (torch.arange(k.shape[2], device=k.device)[None, :]
@@ -704,7 +721,8 @@ def _decode_edge_checks(cfg, dev, gen):
 
 def phase_lm_kernels(configs, device):
     """Every LM kernel against its plain version at the served shapes, in
-    bfloat16 and float32; bfloat16 times at each shape."""
+    bfloat16 and float32; bfloat16 times at each shape, and float32 times
+    at the shapes of ``F32_TIMED`` (keyed ``<label>/float32``)."""
     import torch
 
     from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -720,8 +738,11 @@ def phase_lm_kernels(configs, device):
 
     from repro_torch.device import synchronize
 
+    def attention(q, k, v, causal):
+        return flash_attention(q, k, v, causal=causal)
+
     wrappers = {"rmsnorm": (rmsnorm, rmsnorm_plain),
-                "flash_attention": (flash_attention, flash_attention_plain),
+                "flash_attention": (attention, flash_attention_plain),
                 "exit_head": (exit_head, exit_head_plain),
                 "decode_attention": (decode_attention,
                                      decode_attention_plain)}
@@ -739,12 +760,13 @@ def phase_lm_kernels(configs, device):
             want = plain(*args)
             errs[kernel][dname] = max(errs[kernel][dname], _lm_compare(
                 kernel, args, got, want, dname, label))
-            if dname != "bfloat16":
+            if dname != "bfloat16" and (kernel, label) not in F32_TIMED:
                 continue
             nbytes, ops, rate = _lm_kernel_cost(kernel, shape, dtype, args)
             bound, bound_by = _bound_ms(nbytes, ops, rate)
             lib = _lm_library(kernel, args)
-            timings[kernel][label] = dict(
+            key = label if dname == "bfloat16" else f"{label}/{dname}"
+            timings[kernel][key] = dict(
                 shape=list(shape), dtype=dname,
                 ms=graph_ms(lambda: fn(*args), 20),
                 plain_ms=cuda_ms(lambda: plain(*args), 5),
@@ -1323,6 +1345,10 @@ def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches,
             "library_ms": t["library_ms"],
             "cases": timings,
         })
+        f32 = timings.get(f"{main_case}/float32")
+        if f32 is not None:
+            rows[-1].update({f"{k}_f32": f32[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     return rows
 
 

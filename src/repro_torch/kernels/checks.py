@@ -38,6 +38,20 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
                         f"float32 or bfloat16") from None
 
 
+def require_16_byte_rows(t: torch.Tensor, name: str) -> None:
+    """Raise ``ValueError`` unless every row (last dimension) of ``t``
+    starts 16-byte aligned, as ``cp.async`` copies of 16-byte rows need: an
+    aligned base pointer, and strides of the other dimensions that are
+    multiples of 16 bytes (a dimension of size 1 never uses its stride)."""
+    per_16 = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(st % per_16 for st, n in
+                                zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+        raise ValueError(
+            f"{name} (strides {t.stride()}, address {t.data_ptr():#x}) does "
+            f"not start every row on 16 bytes, which the kernel's cp.async "
+            f"copies need; pass an aligned tensor")
+
+
 def require_cuda(t: torch.Tensor, kernel: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{kernel} runs on cpu or cuda, not {t.device}")

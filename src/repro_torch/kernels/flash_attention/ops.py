@@ -1,8 +1,10 @@
-"""Public wrapper for the flash-attention kernel
+"""Public wrapper for the flash-attention kernels
 (``csrc/flash_attention.cu``).
 
-CPU tensors go to the plain version in ``ref.py``; CUDA tensors launch the
+CPU tensors go to the plain version in ``ref.py``; CUDA tensors launch a
 CUDA kernel, or the wrapper raises. There is no fallback between the two.
+On the card, bfloat16 runs on the tensor cores and float32 on the CUDA
+cores; the dtype picks the kernel, and neither stands in for the other.
 """
 
 from __future__ import annotations
@@ -30,6 +32,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     must be contiguous), so ``x.transpose(1, 2)`` of a ``[B, S, H, D]``
     activation goes in without a copy; the output is allocated with q's
     memory layout. D is one of 16, 32, 64, 128; any S.
+
+    bfloat16 tensors go to the tensor-core kernel, which copies 16-byte
+    rows with ``cp.async``: every base pointer must be 16-byte aligned and
+    every batch, head and position stride a multiple of 8 elements. Where
+    that does not hold the wrapper raises ``ValueError``; it never copies
+    to make it hold. The model's views (``x.transpose(1, 2)`` of a fresh
+    ``[B, S, H, D]`` tensor, D in 16..128) always meet it.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -48,7 +57,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         checks.check(t, name, q.dtype, shape, q.device, contiguous=False)
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
-    out = torch.empty_like(q)
+        if t.dtype == torch.bfloat16:
+            checks.require_16_byte_rows(t, name)
+    out = torch.empty_like(q)  # q's strides, or contiguous: aligned either way
     strides = (ctypes.c_int64 * 12)(*(
         st for t in (q, k, v, out) for st in t.stride()[:3]))
     fn = checks.launcher(KERNEL, "flash_attention_launch", _ARGTYPES)

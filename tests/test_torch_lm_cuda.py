@@ -94,6 +94,97 @@ def test_flash_attention_takes_heads_last_views_and_keeps_their_layout(card):
     _close(got, want, torch.float32)
 
 
+# (B, H, K, S, D): the three served prefills (B = 8, S = 128), Qwen3's at
+# B = 1, S = 1, 77, 300 and 2048, D = 16 and 32, and S = 64 n +- 1
+BF16_ATTENTION_SHAPES = [
+    (8, 9, 3, 128, 64), (8, 24, 8, 128, 128), (8, 32, 8, 128, 128),
+    (1, 32, 8, 128, 128),
+    (2, 6, 2, 1, 64), (1, 32, 8, 77, 128), (1, 4, 2, 300, 16),
+    (1, 8, 2, 2048, 128), (2, 4, 4, 100, 32),
+    (2, 4, 2, 63, 64), (2, 4, 2, 65, 64), (1, 6, 3, 127, 128),
+    (1, 6, 3, 129, 128), (1, 3, 3, 193, 32),
+]
+
+
+def _attention_inputs(rng, b, h, kh, s, d):
+    """bfloat16 q ``[B, H, S, D]``, k and v ``[B, K, S, D]`` on the CPU."""
+    return tuple(_randn(rng, b, n, s, d, dtype=torch.bfloat16)
+                 for n in (h, kh, kh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,s,d", BF16_ATTENTION_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tensor_cores_match_plain(card, b, h, kh, s, d,
+                                                       causal):
+    """The bfloat16 (tensor-core) kernel against the plain version, which
+    runs on the card here so that S = 2048 stays quick."""
+    rng = np.random.default_rng(1000 * s + h + d)
+    q, k, v = (t.to(card) for t in _attention_inputs(rng, b, h, kh, s, d))
+    reset_launch_counts()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention"] == 1 and got.dtype == q.dtype
+    want = flash_attention_plain(q, k, v, causal=causal)
+    _close(got, want.cpu(), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,d", [(2, 50, 6, 2, 64),
+                                        (1, 129, 32, 8, 128)])
+def test_flash_attention_bf16_takes_heads_last_views_and_keeps_their_layout(
+        card, b, s, h, kh, d):
+    rng = np.random.default_rng(s)
+    q, k, v = (_randn(rng, b, s, n, d, dtype=torch.bfloat16).to(card)
+               for n in (h, kh, kh))
+    got = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(*(t.cpu().transpose(1, 2) for t in (q, k, v)))
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q_offset", "k_position_stride",
+                                   "v_head_stride"])
+def test_flash_attention_bf16_refuses_rows_cp_async_cannot_copy(card, which):
+    """A bfloat16 view whose rows are not 16-byte aligned raises
+    ValueError before any launch; the wrapper copies nothing."""
+    b, h, kh, s, d = 1, 4, 2, 70, 64
+    rng = np.random.default_rng(5)
+    q, k, v = (t.to(card) for t in _attention_inputs(rng, b, h, kh, s, d))
+    if which == "q_offset":
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+        q = buf[1:].view(q.shape).copy_(q)
+    elif which == "k_position_stride":
+        k = torch.cat([k, k[..., :1]], dim=-1)[..., :d]  # rows of D + 1
+    else:
+        wide = torch.zeros((b, kh + 1, s, d), dtype=v.dtype, device=card)
+        v = torch.as_strided(wide, (b, kh, s, d),
+                             (wide.stride(0), s * d + 4, d, 1))
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, k, v)
+    assert launch_counts["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,s,d", [(8, 32, 8, 128, 128),
+                                        (2, 9, 3, 77, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_agrees_with_the_float32_kernel(card, b, h, kh,
+                                                             s, d, causal):
+    """The tensor-core kernel on bfloat16 inputs against the CUDA-core
+    kernel on the same values in float32."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (t.to(card) for t in _attention_inputs(rng, b, h, kh, s, d))
+    got = flash_attention(q, k, v, causal=causal)
+    want = flash_attention(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert want.dtype == torch.float32
+    _close(got, want.cpu(), torch.bfloat16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,d,v", [(1, 576, 49152), (2, 576, 49152),
                                    (8, 576, 49152), (3, 3072, 200064),

@@ -22,7 +22,7 @@ from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro.kernels.rmsnorm.ops import rmsnorm as ref_rmsnorm
 from repro.kernels.rmsnorm.ref import rmsnorm_ref
 
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import checks, launch_counts, reset_launch_counts
 from repro_torch.kernels.exit_head.ops import confidence_from, exit_head
 from repro_torch.kernels.exit_head.ref import exit_head_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -135,6 +135,41 @@ def test_flash_accepts_strided_heads_last_views():
     np.testing.assert_allclose(views.numpy(), dense.numpy(), rtol=1e-6,
                                atol=1e-6)
 
+
+def _bf16_view(kind):
+    """A bfloat16 [B, H, S, D] tensor laid out as ``kind`` says."""
+    b, h, s, d = 2, 4, 70, 64
+    if kind == "model_view":   # [B, S, H, D] transposed
+        return torch.zeros((b, s, h, d), dtype=torch.bfloat16).transpose(1, 2)
+    if kind == "contiguous":
+        return torch.zeros((b, h, s, d), dtype=torch.bfloat16)
+    if kind == "unit_dims_odd_strides":  # B = H = 1: their strides unused
+        base = torch.zeros(s * d, dtype=torch.bfloat16)
+        return torch.as_strided(base, (1, 1, s, d), (3, 5, d, 1))
+    if kind == "offset_by_one":
+        n = b * h * s * d
+        return torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(b, h, s, d)
+    if kind == "position_stride_d_plus_1":
+        return torch.zeros((b, h, s, d + 1), dtype=torch.bfloat16)[..., :d]
+    base = torch.zeros(b * (h + 1) * s * d, dtype=torch.bfloat16)
+    return torch.as_strided(base, (b, h, s, d),       # head stride 4484
+                            ((h + 1) * s * d, s * d + 4, d, 1))
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("model_view", True), ("contiguous", True),
+    ("unit_dims_odd_strides", True), ("offset_by_one", False),
+    ("position_stride_d_plus_1", False), ("head_stride_not_8", False)])
+def test_bf16_kernel_row_alignment_check(kind, ok):
+    """The check the wrapper runs on bfloat16 q, k, v before the
+    tensor-core kernel (16-byte cp.async rows); on the CPU it is called
+    directly, since a CPU tensor never reaches it."""
+    t = _bf16_view(kind)
+    if ok:
+        checks.require_16_byte_rows(t, "q")
+    else:
+        with pytest.raises(ValueError, match="16 bytes"):
+            checks.require_16_byte_rows(t, "q")
 
 # ---------------------------------------------------------------------------
 # exit head
