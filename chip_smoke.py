@@ -16,11 +16,13 @@ early-exit LMs (served quanta and KV-cache decode):
    clips), its argmin against the float64 numpy backend, and its time;
 3. the LM kernels (rmsnorm, flash attention, the fused exit head, decode
    attention) against their plain versions on the card at every served
-   model's shapes, in bfloat16 and float32, ragged S and V included, and
-   decode attention at the edges of its lengths; their times (CUDA-graph
-   replay) beside the bound, the plain version and the library call
-   (flash attention in both dtypes: bfloat16 runs on the tensor cores,
-   float32 on the CUDA cores);
+   model's shapes (rmsnorm also at a decode step's rows), in bfloat16 and
+   float32, ragged S and V included, and decode attention at the edges of
+   its lengths; their times (CUDA-graph replay) beside the bound, the plain
+   version and the library call (flash attention in both dtypes: bfloat16
+   runs on the tensor cores, float32 on the CUDA cores); each exit-head
+   case names the first pass it ran (``tensor_core`` or ``cuda_core``) and
+   carries the bare [T, D] x [D, V] product's time for information;
 4. the full-width early-exit ResNet-50/101/152 on the card against the same
    modules on the CPU at every exit;
 5. live ResNet serving: ``measure_profile`` over the 120-cell table, then
@@ -43,7 +45,8 @@ early-exit LMs (served quanta and KV-cache decode):
    first and final exit, 32 greedy steps after the 128-token prompt; step
    time on the host, device time by kernel class, idle share, peak memory;
    decode-attention and rmsnorm launches must equal the count the steps
-   imply;
+   imply, and the profiled step must run one decode-attention kernel a
+   layer;
 10. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
 
 Each phase prints JSON lines. Any failed check raises, so the script exits
@@ -504,8 +507,9 @@ def _bound_ms(nbytes: float, ops: float, rate: float):
 def _lm_kernel_cases(configs):
     """(kernel, label, shape) at every served model's shapes (B = 8, S =
     128; the exit head at every batch of the ladder; decode attention at
-    B = 1 and 8 over the 160-slot decode cache), ragged S and V, one long
-    prompt (B = 1, S = 2048) and one long decode cache (B = 8, S = 4096)
+    B = 1 and 8 over the 160-slot decode cache; rmsnorm also at a decode
+    step's rows, T = B = 1 and 8, and q/k rows B x H), ragged S and V, one
+    long prompt (B = 1, S = 2048) and one long decode cache (B = 8, S = 4096)
     of the last model's attention; for flash attention also the last
     model's B = 1 prefill (the B = 1 quanta), a block boundary (S = 129)
     and a non-causal case. An attention shape is (B, H, K, S, D, causal).
@@ -525,6 +529,12 @@ def _lm_kernel_cases(configs):
         if cfg.qk_norm:
             cases.append(("rmsnorm", f"{arch}/qk",
                           (b * s * cfg.num_heads, dh)))
+        for db in (1, b):  # a decode step's rows: T = B
+            cases.append(("rmsnorm", f"{arch}/decode_t{db}",
+                          (db, cfg.d_model)))
+            if cfg.qk_norm:
+                cases.append(("rmsnorm", f"{arch}/qk_decode_b{db}",
+                              (db * cfg.num_heads, dh)))
         cases.append(("flash_attention", f"{arch}/prefill",
                       (b, cfg.num_heads, cfg.num_kv_heads, s, dh, True)))
         cases.append(("flash_attention", f"{arch}/ragged_s77",
@@ -729,7 +739,7 @@ def phase_lm_kernels(configs, device):
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain,
     )
-    from repro_torch.kernels.exit_head.ops import exit_head
+    from repro_torch.kernels.exit_head.ops import exit_head, exit_head_path
     from repro_torch.kernels.exit_head.ref import exit_head_plain
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -772,6 +782,14 @@ def phase_lm_kernels(configs, device):
                 plain_ms=cuda_ms(lambda: plain(*args), 5),
                 library_ms=None if lib is None else cuda_ms(lib, 20),
                 bound_ms=bound, bound_by=bound_by)
+            if kernel == "exit_head":
+                # which first pass ran, and the bare [T, D] x [D, V]
+                # product, for information only (no yardstick: it returns
+                # the logits, not their argmax, max and logsumexp)
+                h, _, w = args
+                timings[kernel][key].update(
+                    path=exit_head_path(h, w),
+                    matmul_ms=cuda_ms(lambda: torch.matmul(h, w), 20))
             del got, want, args
     if dev.type == "cuda":
         # ties across the exit head's tile boundaries go to the first index
@@ -1191,9 +1209,11 @@ def phase_lm_decode(served, device, steps=DECODE_STEPS,
     profiler), one step under ``torch.profiler`` for the device time of its
     kernels by class and the idle share (1 - device / host), the peak
     memory, and the launches of the steps, which must equal the count the
-    steps imply. Logits must be finite and tokens in the vocabulary; the
-    last step's logits against ``forward_exit`` over the whole sequence are
-    reported, not held (the float32 phase holds the numbers)."""
+    steps imply; the profiled step must hold one decode-attention kernel a
+    layer (one kernel a call). Logits must be finite and tokens in the
+    vocabulary; the last step's logits against ``forward_exit`` over the
+    whole sequence are reported, not held (the float32 phase holds the
+    numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1251,6 +1271,13 @@ def phase_lm_decode(served, device, steps=DECODE_STEPS,
                     launches[k] = launches.get(k, 0) + n
                     implied[k] = implied.get(k, 0) + want[k]
                 by_class, kcounts = _device_ms_by_class(prof)
+                if on_card:
+                    # one kernel a call: the profiled step ran L_e of them
+                    check(kcounts.get("decode_attention", 0)
+                          == cfg.exits[e], f"{label}: "
+                          f"{kcounts.get('decode_attention', 0)} "
+                          f"decode-attention kernels in a step, not "
+                          f"{cfg.exits[e]}")
                 host_ms = float(np.median(walls)) * 1e3
                 device_ms = sum(by_class.values())
                 rows[label] = dict(
@@ -1343,6 +1370,7 @@ def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            **({"path": t["path"]} if "path" in t else {}),
             "cases": timings,
         })
         f32 = timings.get(f"{main_case}/float32")

@@ -18,24 +18,30 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
 KERNEL = "decode_attention"
 HEAD_DIMS = (16, 32, 64, 128)
-# The kernel's chunk of cache positions per block lies in [MIN_CHUNK,
-# MAX_CHUNK] (MAX_CHUNK is kMaxChunk in the source); a block serves up to
-# HEADS_PER_BLOCK query heads of one kv head (kMaxG).
-MIN_CHUNK, MAX_CHUNK, HEADS_PER_BLOCK = 32, 512, 4
-# Blocks of the first pass to aim for: 8 per SM of an H100's 132.
-TARGET_BLOCKS = 8 * 132
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+# A block takes a chunk of a row's cache for one kv head; the chunks of one
+# (row, kv head) are one thread-block cluster of at most MAX_CLUSTER blocks
+# (kMaxCluster in the source), each a whole number of TILE positions (the
+# float32 kernel's tile; the bfloat16 kernel's 16-position slices divide
+# it). A cache of at most MIN_CHUNK positions (the served S = 160) goes to
+# one block whole: a cluster's fold costs more than its blocks save there.
+TILE, MAX_CLUSTER, MIN_CHUNK = 32, 8, 256
+# Blocks to aim for: one per SM of an H100's 132 (the bfloat16 kernel's
+# 128 KB ring at D = 128 leaves room for one).
+TARGET_BLOCKS = 132
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
-def split(b: int, h: int, kh: int, s: int):
-    """(chunk, number of chunks) of the first pass: chunks of a multiple of
-    MIN_CHUNK positions, at most MAX_CHUNK, as many as it takes to give
-    about TARGET_BLOCKS blocks, never more than S needs."""
-    per_chunk = max(b * kh * -(-(h // kh) // HEADS_PER_BLOCK), 1)
-    want = -(-TARGET_BLOCKS // per_chunk)
-    n = max(-(-s // MAX_CHUNK), min(want, -(-s // MIN_CHUNK)), 1)
-    chunk = -(-max(-(-s // n), 1) // MIN_CHUNK) * MIN_CHUNK
+def split(b: int, kh: int, s: int):
+    """The launch plan, (chunk, number of chunks): one launch whose grid
+    is (chunks, kv heads x head groups, B), each (row, kv head, head
+    group)'s chunks one cluster. As many chunks as fit TARGET_BLOCKS over
+    the B x K (row, kv head) pairs, at most MAX_CLUSTER, and none shorter
+    than MIN_CHUNK where S allows; chunks are whole TILEs, chunk * chunks
+    >= S, and no chunk lies wholly past S."""
+    n = max(1, min(MAX_CLUSTER, TARGET_BLOCKS // max(b * kh, 1),
+                   -(-s // MIN_CHUNK)))
+    chunk = -(-max(-(-s // n), 1) // TILE) * TILE
     return chunk, max(-(-s // chunk), 1)
 
 
@@ -84,18 +90,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 st * t.element_size() % 16 for st in t.stride()[:-1]):
             raise ValueError(f"{name}'s rows must be 16-byte aligned")
     checks.check(lengths, "lengths", torch.int32, (b,), q.device)
-    chunk, n_chunks = split(b, h, kh, s)
+    chunk, n_chunks = split(b, kh, s)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((b, h, n_chunks, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, h, n_chunks, 2), dtype=torch.float32,
-                          device=q.device)
     strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
                                    *v.stride()[:3])
     fn = checks.launcher(KERNEL, "decode_attention_launch", _ARGTYPES)
     checks.run(KERNEL, fn, q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-               part_acc.data_ptr(), part_ml.data_ptr(),
                ctypes.addressof(strides), b, h, kh, s, d, chunk, n_chunks,
                1.0 / math.sqrt(d), code)
     launch_counts[KERNEL] += 1

@@ -2,7 +2,9 @@
 
 CPU tensors go to the plain version in ``ref.py``; CUDA tensors launch the
 CUDA kernel (two passes, one call), or the wrapper raises. There is no
-fallback between the two.
+fallback between the two. On the card the first pass runs on the tensor
+cores for bfloat16 with 16-byte W rows and on the CUDA cores otherwise; the
+kernel's C entry picks, and ``exit_head_path`` says which.
 """
 
 from __future__ import annotations
@@ -22,9 +24,28 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_cols(code: int) -> int:
-    fn = checks.launcher(KERNEL, "exit_head_tile_cols", [ctypes.c_int])
-    return int(fn(code))
+def _c_query(symbol: str, code: int, aligned: bool, d: int) -> int:
+    fn = checks.launcher(KERNEL, symbol, [ctypes.c_int] * 3)
+    return int(fn(code, int(aligned), d))
+
+
+def _w_rows_aligned(w: torch.Tensor) -> bool:
+    """Every row of ``w`` starts on 16 bytes (cp.async's unit)."""
+    return (w.data_ptr() % 16 == 0
+            and (w.shape[1] * w.element_size()) % 16 == 0)
+
+
+def exit_head_path(h: torch.Tensor, w: torch.Tensor) -> str:
+    """The first pass that ``exit_head(h, gain, w)`` runs: ``"plain"`` on
+    the CPU; on the card ``"tensor_core"`` (bfloat16 with 16-byte W rows and
+    D <= 5120) or ``"cuda_core"`` (float32, W rows that are not 16-byte
+    aligned, or a larger D), as the kernel's C entry dispatches."""
+    if h.device.type == "cpu":
+        return "plain"
+    code = checks.dtype_code(h, "h")
+    tc = _c_query("exit_head_tensor_cores", code, _w_rows_aligned(w),
+                  h.shape[-1])
+    return "tensor_core" if tc else "cuda_core"
 
 
 def exit_head(h: torch.Tensor, gain: torch.Tensor, w: torch.Tensor, *,
@@ -47,8 +68,8 @@ def exit_head(h: torch.Tensor, gain: torch.Tensor, w: torch.Tensor, *,
     checks.check(h, "h", h.dtype, (t, d), h.device)
     checks.check(gain, "gain", h.dtype, (d,), h.device)
     checks.check(w, "w", h.dtype, (d, v), h.device)
-    n_tiles = -(-v // _tile_cols(code))
-    aligned = w.data_ptr() % 16 == 0 and (v * w.element_size()) % 16 == 0
+    aligned = _w_rows_aligned(w)
+    n_tiles = -(-v // _c_query("exit_head_tile_cols", code, aligned, d))
     part_m = torch.empty((t, n_tiles), dtype=torch.float32, device=h.device)
     part_a = torch.empty((t, n_tiles), dtype=torch.int32, device=h.device)
     part_l = torch.empty((t, n_tiles), dtype=torch.float32, device=h.device)
@@ -64,4 +85,4 @@ def exit_head(h: torch.Tensor, gain: torch.Tensor, w: torch.Tensor, *,
     return idx, mx, lse
 
 
-__all__ = ["exit_head", "confidence_from"]
+__all__ = ["exit_head", "exit_head_path", "confidence_from"]

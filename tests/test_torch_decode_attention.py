@@ -19,8 +19,9 @@ from repro.kernels.decode_attention.ref import decode_attention_ref
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention.ops import (
-    MAX_CHUNK,
+    MAX_CLUSTER,
     MIN_CHUNK,
+    TILE,
     decode_attention,
     split,
 )
@@ -190,9 +191,46 @@ def test_wrapper_refuses_other_devices():
                                     (8, 24, 8), (2, 16, 2)])
 @pytest.mark.parametrize("s", [0, 1, 77, 160, 1000, 4096, 40000])
 def test_split_covers_the_cache_in_bounded_chunks(b, h, kh, s):
-    """The first pass's chunks: a multiple of MIN_CHUNK, at most MAX_CHUNK
-    (the kernel's shared-memory rows), covering S with no empty chunk."""
-    chunk, n = split(b, h, kh, s)
-    assert chunk % MIN_CHUNK == 0 and MIN_CHUNK <= chunk <= MAX_CHUNK
-    assert n >= 1 and chunk * n >= s
+    """The launch plan's chunks: whole tiles of TILE positions, one cluster
+    of at most MAX_CLUSTER of them (the kernel's limits), covering S with
+    no chunk wholly past it; a cache of at most MIN_CHUNK positions is one
+    chunk."""
+    chunk, n = split(b, kh, s)
+    assert chunk % TILE == 0 and chunk >= TILE
+    assert 1 <= n <= MAX_CLUSTER and chunk * n >= s
     assert s == 0 or chunk * (n - 1) < s
+    if s <= MIN_CHUNK:
+        assert n == 1
+
+
+def _kernel_positions(chunk, n_chunks, length, per_warp, warps):
+    """The cache positions each block of the launch reads, as the kernels
+    cut them: block c takes [c * chunk, min((c + 1) * chunk, length)), and
+    its warps take slices of ``per_warp`` positions round-robin (the
+    tensor-core kernel's 8 warps of 16-position slices; the CUDA-core
+    kernel's block walks 32-position tiles with all its warps, ``warps=1``)."""
+    seen = []
+    for c in range(n_chunks):
+        n = max(0, min(chunk, length - c * chunk))
+        slices = -(-n // per_warp)
+        for w in range(warps):
+            for s in range(w, slices, warps):
+                lo = c * chunk + s * per_warp
+                seen.extend(range(lo, min(lo + per_warp, c * chunk + n)))
+    return seen
+
+
+@pytest.mark.parametrize("b,h,kh", [(1, 32, 8), (8, 32, 8), (1, 9, 3),
+                                    (8, 24, 8), (2, 16, 2)])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 160, 1000, 4096])
+def test_launch_plan_reads_every_valid_position_once(b, h, kh, s):
+    """One launch per call: the plan is one grid whose chunks of a (row, kv
+    head) fit one cluster; at lengths 0, 1, S / 2, S and past S (clamped)
+    every valid position is read exactly once and none past the length."""
+    chunk, n_chunks = split(b, kh, s)
+    assert n_chunks <= MAX_CLUSTER
+    for length in (0, 1, s // 2, s, s + 7):
+        valid = min(length, s)
+        for per_warp, warps in ((16, 8), (TILE, 1)):
+            seen = _kernel_positions(chunk, n_chunks, valid, per_warp, warps)
+            assert sorted(seen) == list(range(valid))

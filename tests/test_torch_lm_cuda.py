@@ -18,7 +18,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_plain
-from repro_torch.kernels.exit_head.ops import exit_head
+from repro_torch.kernels.exit_head.ops import exit_head, exit_head_path
 from repro_torch.kernels.exit_head.ref import exit_head_logits, exit_head_plain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -223,6 +223,115 @@ def test_exit_head_ties_go_to_the_first_index(card, dtype):
     idx, _, _ = exit_head(torch.ones((2, d), dtype=dtype, device=card),
                           torch.ones(d, dtype=dtype, device=card), w.to(card))
     assert idx.tolist() == [127, 127]
+
+
+def _head_on_card(card, t, d, v, seed, dtype=torch.bfloat16):
+    """Seeded h ``[T, D]``, gain ``[D]`` and w ``[D, V]`` on the card."""
+    rng = np.random.default_rng(seed)
+    return (_randn(rng, t, d, dtype=dtype).to(card),
+            _randn(rng, d, scale=0.1, shift=1.0, dtype=dtype).to(card),
+            _randn(rng, d, v, scale=d ** -0.5, dtype=dtype).to(card))
+
+
+def _check_head(got, want):
+    """max and lse within the float32 tolerance; the token equals the plain
+    argmax or scores within that tolerance of the plain maximum."""
+    (idx, mx, lse), (ridx, rmx, rlse) = got, want
+    _close(mx, rmx.cpu(), torch.float32)
+    _close(lse, rlse.cpu(), torch.float32)
+    assert idx.dtype == torch.int32
+    return idx, ridx, rmx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2, 4, 8, 9, 17])
+@pytest.mark.parametrize("d,v", [(576, 49152), (4096, 12800)])
+def test_exit_head_tensor_cores_match_plain(card, t, d, v):
+    """bfloat16 with 16-byte W rows runs on the tensor cores (hi/lo split
+    rows), T > 8 as row groups; held against the plain version on the
+    card."""
+    h, g, w = _head_on_card(card, t, d, v, seed=t * 7 + d)
+    assert exit_head_path(h, w) == "tensor_core"
+    reset_launch_counts()
+    got = exit_head(h, g, w)
+    torch.cuda.synchronize()
+    assert launch_counts["exit_head"] == 1
+    idx, ridx, rmx = _check_head(got, exit_head_plain(h, g, w))
+    picked = exit_head_logits(h, g, w).gather(1, idx.long()[:, None])[:, 0]
+    assert bool(torch.all((idx == ridx) | (rmx - picked <= 2e-3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [5, 3])
+def test_exit_head_bf16_ragged_v_runs_on_the_cuda_cores(card, cut):
+    """A bfloat16 W whose rows are not 16-byte aligned (V - 5, V - 3) takes
+    the CUDA-core kernel, held against the plain version."""
+    h, g, w = _head_on_card(card, 3, 576, 49152 - cut, seed=cut)
+    assert exit_head_path(h, w) == "cuda_core"
+    got = exit_head(h, g, w)
+    idx, ridx, rmx = _check_head(got, exit_head_plain(h, g, w))
+    picked = exit_head_logits(h, g, w).gather(1, idx.long()[:, None])[:, 0]
+    assert bool(torch.all((idx == ridx) | (rmx - picked <= 2e-3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols,first", [([25599, 25600, 49151], 25599),
+                                        ([5, 30000, 49151], 5),
+                                        ([49023, 49024], 49023)])
+def test_exit_head_tensor_core_ties_go_to_the_first_index(card, cols, first):
+    """Equal maximal logits in different 128-column tiles (of one
+    persistent block or of two) and across the last tile boundary: the
+    smaller vocab index wins."""
+    d, v = 16, 49152
+    w = torch.zeros((d, v), dtype=torch.bfloat16, device=card)
+    w[:, cols] = 1.0
+    h = torch.ones((3, d), dtype=torch.bfloat16, device=card)
+    assert exit_head_path(h, w) == "tensor_core"
+    idx, _, _ = exit_head(h, torch.ones(d, dtype=torch.bfloat16,
+                                        device=card), w)
+    assert idx.tolist() == [first] * 3
+
+
+# (S, cache layout): the model's views ([B, 1, H, D] q, [B, S, K, D] cache)
+# or contiguous [B, K, S, D]; G = 8 query heads a kv head
+DECODE_PLAN_SHAPES = [(s, layout) for s in (1, 31, 32, 33, 160, 1000, 4096)
+                      for layout in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,cache_layout", DECODE_PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_one_launch_matches_plain(card, s, cache_layout,
+                                                   dtype):
+    """G = 8 at every S of the launch plan (one block, one cluster of
+    chunks), rows of lengths 0, 1, S and past S: the rows with a valid
+    prefix against the plain version, the length-0 row exactly 0."""
+    d = 128 if cache_layout else 64
+    rng = np.random.default_rng(s * 2 + cache_layout)
+    q, k, v, _ = _decode_inputs(rng, 4, 16, 2, s, d, dtype, cache_layout)
+    lens = torch.tensor([0, 1, s, s + 9], dtype=torch.int32)
+    reset_launch_counts()
+    got = decode_attention(*(_on(card, t) for t in (q, k, v, lens)))
+    torch.cuda.synchronize()
+    assert launch_counts["decode_attention"] == 1 and got.dtype == dtype
+    assert not bool(got[0].any())
+    _close(got[1:], decode_attention_plain(q, k, v, lens)[1:], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,s,d", [(8, 32, 8, 160, 128),
+                                        (8, 32, 8, 4096, 128),
+                                        (2, 16, 2, 1000, 64)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_attention_repeats_bitwise(card, b, h, kh, s, d, dtype):
+    """The chunks fold in a fixed order: two calls on the same inputs give
+    the same bits."""
+    rng = np.random.default_rng(s + d)
+    args = [_on(card, t) for t in _decode_inputs(rng, b, h, kh, s, d, dtype,
+                                                 True)]
+    first = decode_attention(*args)
+    second = decode_attention(*args)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -24,7 +24,10 @@ from repro.kernels.rmsnorm.ref import rmsnorm_ref
 
 from repro_torch.kernels import checks, launch_counts, reset_launch_counts
 from repro_torch.kernels.exit_head.ops import confidence_from, exit_head
-from repro_torch.kernels.exit_head.ref import exit_head_plain
+from repro_torch.kernels.exit_head.ref import (
+    exit_head_logits,
+    exit_head_plain,
+)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -235,6 +238,44 @@ def test_exit_head_argmax_is_first_on_ties_across_a_tile_boundary():
     assert got2[0].tolist() == [127, 127] == np.asarray(want2[0]).tolist()
     np.testing.assert_allclose(got2[2].numpy(), np.asarray(want2[2]),
                                rtol=1e-6)
+
+
+def _split_logits(h, g, w, eps=1e-6):
+    """The tensor-core exit head's arithmetic, emulated: the float32 normed
+    rows split into hi = bf16(x) and lo = bf16(x - hi), each multiplied by
+    the bf16 W exactly (float64 here) and summed; also the single-rounding
+    logits bf16(x) @ W."""
+    hf = h.to(torch.float32)
+    x = hf * torch.rsqrt((hf * hf).mean(-1, keepdim=True) + eps) * g.float()
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    w64 = w.double()
+    return hi.double() @ w64 + lo.double() @ w64, hi.double() @ w64
+
+
+def test_exit_head_hi_lo_split_holds_the_float32_reference():
+    """At Qwen3-8B's width (D = 4096) over a V = 8192 slice, with bf16 h, g
+    and W, the hi/lo split's max and lse stay within the float32 tolerance
+    (2e-3) of the reference's float32 exit head and its argmax is the
+    same; a single bf16 rounding of the rows errs far more."""
+    rng = np.random.default_rng(4096)
+    t, d, v = 8, 4096, 8192
+    h = rng.normal(size=(t, d)).astype(np.float32) * 3.0
+    g = (rng.normal(size=d) * 0.2 + 1.0).astype(np.float32)
+    w = (rng.normal(size=(d, v)) / np.sqrt(d)).astype(np.float32)
+    (h_j, h_t), (g_j, g_t), (w_j, w_t) = (_both(a, "bfloat16")
+                                          for a in (h, g, w))
+    ridx, rmx, rlse = (np.asarray(a) for a in exit_head_ref(h_j, g_j, w_j))
+    split, single = _split_logits(h_t, g_t, w_t)
+    mx = split.max(-1).values.numpy()
+    lse = torch.logsumexp(split, -1).numpy()
+    np.testing.assert_allclose(mx, rmx, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(lse, rlse, rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(split.argmax(-1).numpy(), ridx)
+    full = exit_head_logits(h_t, g_t, w_t).double()
+    split_err = float((split - full).abs().max())
+    single_err = float((single - full).abs().max())
+    assert split_err < 1e-4 < single_err
 
 
 def test_confidence_is_a_probability():
