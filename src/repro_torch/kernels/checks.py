@@ -68,8 +68,17 @@ def launcher(kernel: str, symbol: str, argtypes: Sequence):
 
 def run(kernel: str, fn, device: torch.device, *args) -> None:
     """Call ``fn(*args, stream)`` on the current stream of ``device`` and
-    raise on a non-zero CUDA error."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    raise on a non-zero CUDA error. The stream handle is the raw one that
+    ``torch.cuda.current_stream`` wraps (building that ``Stream`` object
+    costs more host time than the launch itself), and the device becomes
+    current for the call only where it is not already."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")

@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention.ref import sdpa_plain as _sdpa
 from repro_torch.models.common import (
     make_param,
     prefix_rotation,
-    rms_norm,
+    rms_norm_pair,
     rope_rotation,
     rotate,
 )
@@ -92,8 +92,7 @@ def attention(params, x: torch.Tensor, cfg: AttentionConfig,
     k = (x @ params["wk"]).reshape(b, s, kh, dh)
     v = (x @ params["wv"]).reshape(b, s, kh, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
+        q, k = rms_norm_pair(q, params["q_norm"], k, params["k_norm"])
     if cache is not None:
         return _decode(params, q, k, v, cfg, cache)
     rotation = prefix_rotation(s, dh, cfg.rope_theta, x.device)

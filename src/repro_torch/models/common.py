@@ -9,20 +9,20 @@ on the host). A seed gives the same weights on the same device; the draw
 differs from ``jax.random`` bit for bit (two different generators), the
 distribution is the same.
 
-``rms_norm`` goes through the RMSNorm kernel's wrapper: the plain version on
-a CPU tensor, the CUDA kernel on a card tensor.
+``rms_norm`` and ``rms_norm_pair`` go through the RMSNorm kernel's wrappers:
+the plain version on a CPU tensor, the CUDA kernel on a card tensor.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_pair
 
 
 def truncated_normal(shape: Sequence[int], generator: torch.Generator,
@@ -78,6 +78,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     d = x.shape[-1]
     return rmsnorm(x.reshape(-1, d).contiguous(), weight, eps=eps).reshape(
         x.shape)
+
+
+def rms_norm_pair(q: torch.Tensor, q_weight: torch.Tensor, k: torch.Tensor,
+                  k_weight: torch.Tensor, eps: float = 1e-6
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rms_norm(q, q_weight), rms_norm(k, k_weight))`` for two tensors of
+    one last dimension; one RMSNorm kernel launch on the card."""
+    d = q.shape[-1]
+    nq, nk = rmsnorm_pair(q.reshape(-1, d).contiguous(), q_weight,
+                          k.reshape(-1, d).contiguous(), k_weight, eps=eps)
+    return nq.reshape(q.shape), nk.reshape(k.shape)
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

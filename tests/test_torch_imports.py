@@ -1,5 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports JAX or the reference package ``repro``."""
+"""The port stands alone: no module of ``src/repro_torch/``, not
+``chip_smoke.py`` and not the port's measurement script
+``tools/scoring_round_split.py`` imports JAX or the reference package
+``repro``."""
 
 import ast
 from pathlib import Path
@@ -42,7 +44,8 @@ def test_port_package_is_present():
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    "path", PORT_FILES + [ROOT / "chip_smoke.py",
+                          ROOT / "tools" / "scoring_round_split.py"],
     ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_reference_import(path):
     bad = [(mod, line) for mod, line in _imported_roots(path)

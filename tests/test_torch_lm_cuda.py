@@ -360,7 +360,8 @@ def test_smoke_lm_on_card_matches_cpu(card, arch):
 @pytest.mark.cuda
 def test_served_quantum_launches_each_kernel(card):
     """One served quantum of the Qwen3 SMOKE model launches rmsnorm 2 L_e
-    (+ 2 L_e for q/k norm), flash attention L_e and the exit head once."""
+    (+ L_e for q/k norm, q and k in one launch), flash attention L_e and the
+    exit head once."""
     cfg = get_config("qwen3-8b", smoke=True)
     (mod,) = serve_lms({"q": cfg}, device=card, prompt_len=16, max_batch=4)
     run_quantum(mod, 1, 4)
@@ -368,7 +369,7 @@ def test_served_quantum_launches_each_kernel(card):
     idx, _, _ = run_quantum(mod, 1, 4)
     layers = cfg.exits[1]
     assert idx.shape == (4,)
-    assert launch_counts["rmsnorm"] == 4 * layers
+    assert launch_counts["rmsnorm"] == 3 * layers
     assert launch_counts["flash_attention"] == layers
     assert launch_counts["exit_head"] == 1
 
@@ -442,7 +443,8 @@ def test_decode_attention_lengths_and_tail(card, dtype):
 def test_smoke_decode_on_card_matches_cpu(card, arch):
     """Prefill, then 6 decode steps of the SMOKE model on the card against
     the same weights on the CPU, in logits and caches; each step launches
-    decode attention L_e times and rmsnorm 2 L_e (+2 L_e) + 1 times."""
+    decode attention L_e times and rmsnorm 2 L_e (+L_e: q and k in one
+    launch) + 1 times."""
     cfg = get_config(arch, smoke=True)
     model = DecoderLM(cfg, generator=torch.Generator(card).manual_seed(0),
                       device=card)
@@ -469,8 +471,8 @@ def test_smoke_decode_on_card_matches_cpu(card, arch):
                                                caches[0], e)
             torch.cuda.synchronize()
             assert launch_counts["decode_attention"] == layers
-            assert launch_counts["rmsnorm"] == 2 * layers * (
-                2 if cfg.qk_norm else 1) + 1
+            assert launch_counts["rmsnorm"] == layers * (
+                3 if cfg.qk_norm else 2) + 1
             want, caches[1] = twin.decode_step(tokens[:, i:i + 1], caches[1],
                                                e)
             _close(got, want, torch.float32)
