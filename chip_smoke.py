@@ -35,25 +35,34 @@ early-exit LMs (served quanta and KV-cache decode):
    decision time of both, a ``cuda`` round's host split (pack, upload,
    launch, fetch and synchronise), and one round of each backend at
    M = 256, N = 1024;
-6. the LMs on the card against the CPU in float32: SmolLM-135M at full
+6. the serving simulator through ``SweepRunner.run_cell`` and
+   ``ServingSimulator``: the fig4 lambda=140 golden cell, the fig12 lattice
+   cell at 30 ms and lambda=240, and fig15's thermal-throttle cell under
+   online adaptation, each with the ``numpy`` and the ``cuda`` scoring
+   backend; the numpy runs hold ``tests/data/golden_metrics.json`` at
+   rtol 1e-9, the ``cuda`` runs decide as the numpy shadow does on the same
+   snapshots and tables (float32 ties aside), and the stability kernel
+   launches once per scoring round; each backend's host time per round and
+   wall time per cell;
+7. the LMs on the card against the CPU in float32: SmolLM-135M at full
    width and depth at every exit, Phi-4-mini and Qwen3-8B at full width cut
    to 2 layers and one exit;
-7. KV-cache decode on the card against the CPU in float32, the same models
+8. KV-cache decode on the card against the CPU in float32, the same models
    and cuts: prefill, then 16 teacher-forced decode steps; logits and
    caches against the CPU's, logits against ``forward_exit``;
-8. live LM serving: SmolLM-135M, Phi-4-mini and Qwen3-8B at full width and
+9. live LM serving: SmolLM-135M, Phi-4-mini and Qwen3-8B at full width and
    depth in bfloat16, ``measure_profile`` over 3 x 4 x 4 cells, then a 3 s
    Poisson trace at 3:2:1 whose total rate keeps the card 90% busy at the
    final exit and B = 8, served with the ``cuda`` scoring backend and the
    float64 shadow; each LM kernel's launches must equal the count implied
    by the engine's decisions;
-9. KV-cache decode of the same three models in bfloat16: B = 1 and 8 at the
+10. KV-cache decode of the same three models in bfloat16: B = 1 and 8 at the
    first and final exit, 32 greedy steps after the 128-token prompt; step
    time on the host, device time by kernel class, idle share, peak memory;
    decode-attention and rmsnorm launches must equal the count the steps
    imply, and the profiled step must run one decode-attention kernel a
    layer;
-10. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
+11. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
 
 Each phase prints JSON lines. Any failed check raises, so the script exits
 non-zero before the last line. Without a CUDA device, or outside a checkout
@@ -375,61 +384,59 @@ def phase_models(configs, device):
 # ---------------------------------------------------------------------------
 
 
-class RecordingScheduler:
-    """Delegates to a scheduler and keeps every (snapshot, decision) round,
-    so a shadow scheduler can decide on the same snapshots afterwards."""
+def record_rounds(sched):
+    """Wrap ``sched.decide`` on the instance so that every round is kept as
+    (snapshot, decision, the table decided with, host seconds). The engine
+    and the simulator call the scheduler itself, so a table that the
+    simulator's online profiler swaps in is the one recorded."""
+    rounds, decide = [], sched.decide
 
-    def __init__(self, inner):
-        self.inner = inner
-        self.rounds = []
-
-    def __getattr__(self, name):
-        return getattr(self.inner, name)
-
-    def decide(self, snapshot):
-        d = self.inner.decide(snapshot)
-        self.rounds.append((snapshot, d))
+    def recording(snapshot):
+        t0 = time.perf_counter()
+        d = decide(snapshot)
+        rounds.append((snapshot, d, sched.table, time.perf_counter() - t0))
         return d
 
+    sched.decide = recording
+    return rounds
 
-def _score_of(sched, snapshot, model):
-    """float64 score of queue ``model``'s Eq. 5/6 candidate."""
-    cq, cb, _, cl, _ = sched.enumerate_candidates(snapshot)
+
+def _score_of(sched, snapshot, pick):
+    """float64 score of the candidate ``pick`` = (model, exit, batch)."""
+    cq, cb, ce, cl, _ = sched.enumerate_candidates(snapshot)
     scores = sched.score_candidates(snapshot, cl, cb, cq)
-    return float(scores[list(cq).index(model)])
+    (i,) = [i for i in range(len(cq)) if (cq[i], ce[i], cb[i]) == pick]
+    return float(scores[i])
 
 
-def shadow_check(phase, scored, table, max_batch):
-    """Decide every recorded snapshot again with the float64 numpy
-    EdgeServing scheduler; a decision that differs must be a float32 tie.
-    Returns the numpy scheduler."""
-    from repro_torch.core import (
-        SchedulerConfig,
-        VectorizedEdgeServingScheduler,
-        make_scheduler,
-    )
+def shadow_check(phase, scored, max_batch, policy="edgeserving", slo=SLO):
+    """Decide every recorded scoring round again with the float64 numpy
+    scheduler of ``policy``, on the same snapshot and table; a decision
+    that differs must be a float32 tie. Returns the numpy scheduler and
+    the number of ties."""
+    from repro_torch.core import SchedulerConfig, make_scheduler
 
-    shadow = make_scheduler("edgeserving", table,
-                            SchedulerConfig(slo=SLO, max_batch=max_batch))
-    vec64 = VectorizedEdgeServingScheduler(
-        table, SchedulerConfig(slo=SLO, max_batch=max_batch))
+    shadow = make_scheduler(policy, scored[0][2],
+                            SchedulerConfig(slo=slo, max_batch=max_batch))
     mismatches = ties = 0
-    for snap, d in scored:
+    for snap, d, table, _ in scored:
+        shadow.table = table
         ds = shadow.decide(snap)
-        if (d.model, d.exit_idx, d.batch_size) == (
-                ds.model, ds.exit_idx, ds.batch_size):
+        pick, pick_host = ((d.model, d.exit_idx, d.batch_size),
+                           (ds.model, ds.exit_idx, ds.batch_size))
+        if pick == pick_host:
             continue
-        s_card = _score_of(vec64, snap, d.model)
-        s_host = _score_of(vec64, snap, ds.model)
+        s_card = _score_of(shadow, snap, pick)
+        s_host = _score_of(shadow, snap, pick_host)
         if abs(s_card - s_host) <= TIE_RTOL * abs(s_host):
             ties += 1
         else:
             mismatches += 1
     emit(phase, rounds=len(scored), mismatches=mismatches,
-         float32_ties=ties)
+         float32_ties=ties, tables=len({id(r[2]) for r in scored}))
     check(mismatches == 0, f"{mismatches} decisions differ from the numpy "
                            f"shadow beyond float32 ties")
-    return shadow
+    return shadow, ties
 
 
 def phase_serving(served, device, scoring_round=None):
@@ -476,7 +483,8 @@ def phase_serving(served, device, scoring_round=None):
 
     cfg = SchedulerConfig(slo=SLO, max_batch=10, backend="cuda",
                           device=device)
-    sched = RecordingScheduler(make_scheduler("edgeserving", table, cfg))
+    sched = make_scheduler("edgeserving", table, cfg)
+    rounds = record_rounds(sched)
     engine = ServingEngine(served, sched)
     engine.warmup()
     arrivals = poisson_arrivals(paper_rate_vector(LAMBDA_152), HORIZON_S,
@@ -485,7 +493,7 @@ def phase_serving(served, device, scoring_round=None):
     completions, span = engine.run(arrivals, HORIZON_S, drain=True)
     launches = launch_counts["stability_score"]
     m = engine.metrics(table, SLO, span)
-    scored = [(s, d) for s, d in sched.rounds if s.nonempty()]
+    scored = [r for r in rounds if r[0].nonempty()]
     residual = m.residual_queue
     emit("serve", arrivals=len(arrivals), completed=len(completions),
          dropped=engine.dropped, residual=residual, span_s=span,
@@ -493,9 +501,9 @@ def phase_serving(served, device, scoring_round=None):
          violation_ratio=m.violation_ratio,
          mean_exit_depth=m.mean_exit_depth, utilization=m.utilization,
          throughput=m.throughput, mean_batch=m.mean_batch,
-         rounds=len(sched.rounds), scoring_rounds=len(scored),
+         rounds=len(rounds), scoring_rounds=len(scored),
          kernel_launches=launches,
-         mean_max_q=float(np.mean([max(s.qlens()) for s, _ in scored])),
+         mean_max_q=float(np.mean([max(r[0].qlens()) for r in scored])),
          per_model=[dict(model=pm.model, completed=pm.num_completed,
                          violation_ratio=pm.violation_ratio,
                          p95_ms=pm.p95_latency * 1e3,
@@ -507,11 +515,11 @@ def phase_serving(served, device, scoring_round=None):
     check(launches == len(scored),
           f"kernel launches {launches} != scoring rounds {len(scored)}")
 
-    shadow = shadow_check("shadow", scored, table, max_batch=10)
+    shadow, _ = shadow_check("shadow", scored, max_batch=10)
 
     # per-round decision time on the recorded snapshots, host clock
     cuda_sched = make_scheduler("edgeserving", table, cfg)
-    sample = [s for s, _ in scored][:500]
+    sample = [r[0] for r in scored][:500]
     timing = {}
     for name, sc in (("numpy", shadow), ("cuda", cuda_sched)):
         for s in sample[:20]:
@@ -595,6 +603,157 @@ def phase_scoring_round(sched, sample):
           f"cuda round at M=256 picks {a}, numpy {b}")
     emit("scoring_round", snapshots=len(rounds), mean_us=split,
          m256_us=dict(M=256, Q=128, N=1024, **m256))
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the serving simulator and the sweep harness
+# ---------------------------------------------------------------------------
+
+GOLDEN = ROOT / "tests" / "data" / "golden_metrics.json"
+GOLDEN_RTOL = 1e-9  # tests/test_golden_metrics.py
+FIG12_LAMBDAS = (20.0, 60.0, 100.0, 140.0, 180.0, 220.0, 240.0)
+THROTTLE = (("onset", 1.5), ("ramp", 2.0), ("peak", 2.2))  # fig15
+
+
+def sim_cells():
+    """(name, execution table, SweepSpec fields) of each simulated cell:
+    the fig4 golden, a fig12 lattice golden, and fig15's throttle row
+    under online adaptation (``benchmarks/fig15_drift.py``; no golden)."""
+    from repro_torch.core import AdaptConfig, ProfileTable
+
+    paper = ProfileTable.paper_rtx3080()
+    return (
+        ("fig4_lam140", paper,
+         dict(policy="edgeserving", rate=140.0, seed=7, horizon=10.0)),
+        ("fig12_lattice_slo30_lam240", paper.with_batch_saturation(4),
+         dict(policy="edgeserving-lattice", slo=0.030, rate=240.0, seed=7,
+              horizon=10.0)),
+        ("fig15_throttle_adaptive", paper,
+         dict(policy="edgeserving", rate=140.0, seed=7, slo=0.050,
+              horizon=8.0, drift="thermal-throttle", drift_kwargs=THROTTLE,
+              adapt=AdaptConfig(refresh_every=0.25))),
+    )
+
+
+def golden_fields(name, metrics):
+    """The cell's pinned golden values as (field, got, want) triples:
+    the whole fig4 row, per model included, or the fig12 cell's
+    ``per_lambda`` entry; none for a cell without a golden."""
+    import dataclasses
+
+    golden = json.loads(GOLDEN.read_text())
+    if name == "fig4_lam140":
+        got, want = dataclasses.asdict(metrics), golden["fig4_lam140"]
+        check(got.keys() == want.keys(), "fig4 golden fields")
+        out = []
+        for key, value in want.items():
+            if key in ("per_model", "per_device"):
+                check(len(got[key]) == len(value), f"fig4 golden {key}")
+                out += [(f"{key}[{i}].{f}", gm[f], wm[f])
+                        for i, (gm, wm) in enumerate(zip(got[key], value))
+                        for f in wm]
+            else:
+                out.append((key, got[key], value))
+        return out
+    if name == "fig12_lattice_slo30_lam240":
+        entry = golden["fig12"]["edgeserving-lattice/slo30ms"]
+        return [("violation_ratio", metrics.violation_ratio,
+                 entry["per_lambda"][FIG12_LAMBDAS.index(240.0)])]
+    return []
+
+
+def _round_us(rounds):
+    per = np.array([r[3] for r in rounds]) * 1e6
+    return dict(mean=float(per.mean()), p50=float(np.median(per)),
+                p95=float(np.percentile(per, 95)))
+
+
+def phase_sim(device):
+    """Each simulated cell through ``SweepRunner.run_cell``, with the
+    ``numpy`` and the ``cuda`` scoring backend, then again through the
+    cell's ``ServingSimulator`` with its rounds recorded (host time each)
+    and its traces kept. The numpy run must hold the goldens at rtol 1e-9;
+    the ``cuda`` run must decide as the numpy shadow does on the same
+    snapshots and tables (float32 ties aside) and, with no tie, equal the
+    numpy run; the stability kernel must launch once per scoring round.
+    Returns the kernel's launches in the ``run_cell`` runs."""
+    import torch
+
+    from repro_torch.core import SweepRunner, SweepSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    on_card = torch.device(device).type == "cuda"
+    total_launches = 0
+    for name, table, fields in sim_cells():
+        runner = SweepRunner(table)
+        runs = {}
+        for backend in ("numpy", "cuda"):
+            spec = SweepSpec(**fields, backend=backend, device=device)
+            reset_launch_counts()
+            cell = runner.run_cell(spec)
+            launches = launch_counts["stability_score"]
+            sim = runner.simulator(spec)
+            rounds = record_rounds(sim.scheduler)
+            arrivals = runner.arrivals(spec)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = sim.run(arrivals, spec.horizon,
+                          warmup_tasks=spec.warmup_tasks, keep_traces=True)
+            recorded_s = time.perf_counter() - t0
+            recorded_launches = launch_counts["stability_score"]
+            scored = [r for r in rounds if r[0].nonempty()]
+            check(res.metrics == cell.metrics,
+                  f"{name}/{backend}: the recorded run differs from "
+                  f"run_cell")
+            want = len(scored) if on_card and backend == "cuda" else 0
+            check(launches == want and recorded_launches == want,
+                  f"{name}/{backend}: stability launches {launches} and "
+                  f"{recorded_launches}, want {want} (scoring rounds "
+                  f"{len(scored)})")
+            runs[backend] = dict(cell=cell, res=res, rounds=rounds,
+                                 scored=scored, launches=launches,
+                                 recorded_s=recorded_s)
+        total_launches += runs["cuda"]["launches"]
+
+        f64, f32 = runs["numpy"], runs["cuda"]
+        held = golden_fields(name, f64["cell"].metrics)
+        for field, got, want in held:
+            check(bool(np.isclose(got, want, rtol=GOLDEN_RTOL, atol=0.0)),
+                  f"{name}: golden {field} {got!r} != {want!r}")
+        refreshes = len({id(r[2]) for r in f64["rounds"]}) - 1
+        if fields.get("adapt") is not None:
+            check(refreshes >= 1, f"{name}: the profiler never refreshed")
+            check(f64["res"].adapted_table is not None,
+                  f"{name}: no adapted table")
+        _, ties = shadow_check(f"sim_shadow/{name}", f32["scored"],
+                               max_batch=10, policy=fields["policy"],
+                               slo=fields.get("slo", SLO))
+        if ties == 0:
+            check([(t.t_start, t.decision.model, t.decision.exit_idx,
+                    t.decision.batch_size) for t in f32["res"].traces]
+                  == [(t.t_start, t.decision.model, t.decision.exit_idx,
+                       t.decision.batch_size) for t in f64["res"].traces],
+                  f"{name}: cuda decisions differ from numpy with no tie")
+            check(f32["cell"].metrics == f64["cell"].metrics,
+                  f"{name}: cuda metrics differ from numpy with no tie")
+        m64, m32 = f64["cell"].metrics, f32["cell"].metrics
+        emit("sim", cell=name, title=f32["cell"].spec.title(),
+             arrivals=len(arrivals),
+             rounds=len(f32["rounds"]), scoring_rounds=len(f32["scored"]),
+             kernel_launches=f32["launches"],
+             round_us={b: _round_us(runs[b]["scored"]) for b in runs},
+             wall_s={b: runs[b]["cell"].us_per_call / 1e6 for b in runs},
+             # the recorded run's share spent deciding (its rounds' sum)
+             decide_share={b: sum(r[3] for r in runs[b]["rounds"])
+                           / runs[b]["recorded_s"] for b in runs},
+             float32_ties=ties,
+             golden_fields_held=len(held), refreshed_tables=refreshes,
+             violation_ratio={"numpy": m64.violation_ratio,
+                              "cuda": m32.violation_ratio},
+             p95_ms={"numpy": m64.p95_latency * 1e3,
+                     "cuda": m32.p95_latency * 1e3},
+             completed=m64.num_completed)
+    return total_launches
 
 
 # ---------------------------------------------------------------------------
@@ -946,7 +1105,7 @@ def phase_lm_kernels(configs, device):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the LMs on the card against the CPU, float32
+# Phase 7: the LMs on the card against the CPU, float32
 # ---------------------------------------------------------------------------
 
 
@@ -1036,7 +1195,7 @@ def phase_lm_models(configs, device, seq=LM_PROMPT):
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: KV-cache decode of the LMs on the card against the CPU, float32
+# Phase 8: KV-cache decode of the LMs on the card against the CPU, float32
 # ---------------------------------------------------------------------------
 
 
@@ -1150,7 +1309,7 @@ def phase_lm_decode_models(configs, device, prompt=DECODE_CHECK["prompt"],
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: live LM serving
+# Phase 9: live LM serving
 # ---------------------------------------------------------------------------
 
 
@@ -1226,7 +1385,8 @@ def phase_lm_serving(configs, device, horizon=HORIZON_S):
 
     cfg = SchedulerConfig(slo=SLO, max_batch=LM_BATCHES[-1], backend="cuda",
                           device=device)
-    sched = RecordingScheduler(make_scheduler("edgeserving", table, cfg))
+    sched = make_scheduler("edgeserving", table, cfg)
+    rounds = record_rounds(sched)
     engine = ServingEngine(served, sched)
     engine.warmup()
     arrivals = poisson_arrivals(rates.tolist(), horizon, seed=0)
@@ -1234,8 +1394,8 @@ def phase_lm_serving(configs, device, horizon=HORIZON_S):
     completions, span = engine.run(arrivals, horizon, drain=True)
     launches = {k: launch_counts[k] for k in KERNELS}
     m = engine.metrics(table, SLO, span)
-    decisions = [d for _, d in sched.rounds if d is not None]
-    scored = [(s, d) for s, d in sched.rounds if s.nonempty()]
+    decisions = [r[1] for r in rounds if r[1] is not None]
+    scored = [r for r in rounds if r[0].nonempty()]
     want = _expected_launches(served, decisions)
     residual = m.residual_queue
     emit("lm_serve", arrivals=len(arrivals), completed=len(completions),
@@ -1261,7 +1421,7 @@ def phase_lm_serving(configs, device, horizon=HORIZON_S):
         check(launches[kernel] == n,
               f"{kernel} launches {launches[kernel]} != {n} implied by the "
               f"decisions")
-    shadow_check("lm_shadow", scored, table, max_batch=LM_BATCHES[-1])
+    shadow_check("lm_shadow", scored, max_batch=LM_BATCHES[-1])
     lm_breakdown(served)
     return launches, served
 
@@ -1324,7 +1484,7 @@ def lm_breakdown(served):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: KV-cache decode of the served LMs, bfloat16, full size
+# Phase 10: KV-cache decode of the served LMs, bfloat16, full size
 # ---------------------------------------------------------------------------
 
 
@@ -1484,11 +1644,12 @@ LM_KERNEL_ROWS = {
 }
 
 
-def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches,
-                   decode_launches):
+def kernel_summary(kernel, resnet_launches, sim_launches, lm_kernels,
+                   lm_launches, decode_launches):
     """One entry per kernel of the port's paths, with every key of the
-    contract; the stability score's launches are both serving runs', and
-    rmsnorm's those of the LM serve and the decode phase."""
+    contract; the stability score's launches are both serving runs' and
+    the simulated cells', and rmsnorm's those of the LM serve and the
+    decode phase."""
     t3 = kernel["timings"]["m3"]
     t256 = kernel["timings"]["m256"]
     rows = [{
@@ -1496,8 +1657,10 @@ def kernel_summary(kernel, resnet_launches, lm_kernels, lm_launches,
         "route": "cuda",
         "source": "src/repro_torch/csrc/stability_score.cu",
         "replaces": "src/repro/kernels/stability_score/kernel.py:35",
-        "launches": resnet_launches + lm_launches["stability_score"],
+        "launches": (resnet_launches + sim_launches
+                     + lm_launches["stability_score"]),
         "launches_resnet_serve": resnet_launches,
+        "launches_sim": sim_launches,
         "launches_lm_serve": lm_launches["stability_score"],
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
@@ -1564,13 +1727,14 @@ def main() -> int:
     resnet_launches = phase_serving(served, "cuda")
     del served
     torch.cuda.empty_cache()
+    sim_launches = phase_sim("cuda")
     phase_lm_models(lm_configs, "cuda")
     phase_lm_decode_models(lm_configs, "cuda")
     lm_launches, served = phase_lm_serving(lm_configs, "cuda")
     decode_launches = phase_lm_decode(served, "cuda")
     del served
     print(json.dumps({"kernels": kernel_summary(
-        kernel, resnet_launches, lm_kernels, lm_launches,
+        kernel, resnet_launches, sim_launches, lm_kernels, lm_launches,
         decode_launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

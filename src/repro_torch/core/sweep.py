@@ -1,0 +1,294 @@
+"""Parallel sweep harness for serving experiments.
+
+Every paper figure is a grid sweep — (policy × scenario × seed × rate).
+:class:`SweepRunner` fans the grid across worker processes while
+guaranteeing that **parallel results are bitwise-identical to serial**:
+
+  * each grid cell is hermetic: the arrival trace, the scheduler and the
+    simulator's noise stream are all re-seeded inside the cell from the
+    cell's own :class:`SweepSpec` (no shared PRNG stream whose consumption
+    order could depend on scheduling);
+  * results are returned in grid order regardless of completion order;
+  * workers are plain ``ProcessPoolExecutor`` processes using the ``spawn``
+    start method. Processes, never threads: ``make_scoring_backend`` keeps
+    one instance per (name, device), and the ``cuda`` one owns the staging
+    buffers every round reuses.
+
+``ServingMetrics`` is a frozen dataclass of floats/ints/tuples, so
+"bitwise-identical" is checked with plain ``==``.
+
+This is the port of the reference's ``src/repro/core/sweep.py`` on the
+single-device Python engine. Fleets (``fleet=``, ``cluster_grid``), the
+compiled scan engine (``engine="scan"``) and telemetry (``trace=True``) are
+not ported yet and raise ``NotImplementedError``.
+
+Typical use::
+
+    runner = SweepRunner(ProfileTable.paper_rtx3080())
+    specs = runner.grid(policies=("edgeserving", "all-final"),
+                        scenarios=("poisson", "mmpp"),
+                        rates=(100.0, 200.0), seeds=(7,))
+    results = runner.run(specs, workers=8)   # == runner.run(specs, workers=1)
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import itertools
+import multiprocessing
+import os
+import time
+from typing import List, Optional, Sequence, Tuple
+
+from repro_torch.core.adaptive import AdaptConfig, make_drift
+from repro_torch.core.baselines import make_scheduler
+from repro_torch.core.metrics import ServingMetrics
+from repro_torch.core.profile import ProfileTable
+from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.core.simulator import ServingSimulator
+from repro_torch.core.traffic import paper_rate_vector
+from repro_torch.core.workloads import make_scenario
+
+__all__ = ["SweepSpec", "SweepResult", "SweepRunner"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepSpec:
+    """One hermetic grid cell: everything that varies across a sweep.
+
+    ``rate`` is the paper's scalar traffic intensity (λ₁₅₂), expanded through
+    ``paper_rate_vector``; pass an explicit per-model ``rates`` tuple to
+    override. ``scenario`` names a ``repro_torch.core.workloads.SCENARIOS``
+    entry; ``scenario_kwargs`` (a tuple of (key, value) pairs, to stay
+    hashable) parameterises it. ``deadlines`` is an optional per-model SLO
+    vector. ``backend`` selects the stability-score scoring engine
+    (``repro_torch.core.scoring``: numpy / torch / cuda) for the cell's
+    Algorithm-1 scheduler, and ``device`` the device the ``torch`` and
+    ``cuda`` backends score on (None = the card, ``"cpu"`` = their plain
+    versions on the host).
+
+    Drift / adaptation (``repro_torch.core.adaptive``): ``drift`` names a
+    ``DRIFTS`` model (or ``"none"``) applied to true service times, with
+    ``drift_kwargs`` as hashable (key, value) pairs; ``adapt`` is an
+    optional :class:`AdaptConfig` switching the cell's scheduler from the
+    static cold-start table to online-profiled refreshes. Both default to
+    off, which is bitwise the stock cell.
+
+    The cluster fields (``fleet``, ``fleet_size``, ``dispatcher``,
+    ``power_d``, ``fail_at``), ``engine="scan"`` and ``trace`` keep the
+    reference's names and defaults; a cell that sets a cluster field,
+    the scan engine or a trace raises, since those tiers are not ported.
+    """
+
+    policy: str
+    scenario: str = "poisson"
+    rate: float = 100.0
+    seed: int = 7
+    slo: float = 0.050
+    max_batch: int = 10
+    horizon: float = 10.0
+    warmup_tasks: int = 100
+    rates: Optional[Tuple[float, ...]] = None
+    deadlines: Optional[Tuple[float, ...]] = None
+    scenario_kwargs: Tuple[Tuple[str, object], ...] = ()
+    label: str = ""
+    fleet: Optional[str] = None          # None = single-device cell
+    fleet_size: int = 1
+    dispatcher: str = "least-loaded"
+    power_d: int = 2                     # stability-aware power-of-d fan-in
+    fail_at: Tuple[Tuple[int, float], ...] = ()
+    backend: str = "numpy"
+    drift: Optional[str] = None          # DRIFTS name; None/"none" = stock
+    drift_kwargs: Tuple[Tuple[str, object], ...] = ()
+    adapt: Optional[AdaptConfig] = None  # None = static scheduler table
+    engine: str = "python"               # "python" | "scan" (not ported)
+    trace: bool = False                  # telemetry (not ported)
+    device: Optional[str] = None         # scoring device; None = the card
+
+    def rate_vector(self) -> List[float]:
+        if self.rates is not None:
+            return list(self.rates)
+        return paper_rate_vector(self.rate)
+
+    def title(self) -> str:
+        if self.label:
+            return self.label
+        policy = self.policy
+        if self.backend != "numpy":
+            policy = f"{policy}[{self.backend}]"
+        if self.engine != "python":
+            policy = f"{policy}[{self.engine}]"
+        base = f"{policy}/{self.scenario}/lam{self.rate:g}/seed{self.seed}"
+        if self.drift is not None and self.drift != "none":
+            base = f"{base}/drift-{self.drift}"
+        if self.adapt is not None:
+            base = f"{base}/adapt"
+        if self.fleet is not None:
+            base = f"{self.dispatcher}/{self.fleet}x{self.fleet_size}/{base}"
+        return base
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepResult:
+    spec: SweepSpec
+    metrics: ServingMetrics
+    us_per_call: float  # wall microseconds spent on this cell (in its worker)
+    trace: None = None  # the telemetry timeline: not ported, always None
+
+
+def _run_cell(runner: "SweepRunner", spec: SweepSpec) -> SweepResult:
+    """Module-level trampoline so the pool can pickle the call."""
+    return runner.run_cell(spec)
+
+
+def _check_ported(spec: SweepSpec) -> None:
+    """Raise for every field that selects a tier the port lacks."""
+    if spec.engine == "scan":
+        raise NotImplementedError(
+            "SweepSpec.engine='scan' (the compiled tiers) is not ported to "
+            "repro_torch yet; run the cell with engine='python'")
+    if spec.engine != "python":
+        raise ValueError(
+            f"unknown SweepSpec.engine {spec.engine!r}; "
+            f"expected 'python' or 'scan'"
+        )
+    if spec.trace:
+        raise NotImplementedError(
+            "SweepSpec.trace=True (telemetry) is not ported to repro_torch "
+            "yet")
+    if spec.fleet is not None:
+        raise NotImplementedError(
+            "SweepSpec.fleet (the cluster tier) is not ported to repro_torch "
+            "yet")
+    if (spec.fail_at or spec.fleet_size != 1
+            or spec.dispatcher != "least-loaded"):
+        raise ValueError(
+            "cluster-only SweepSpec fields (fail_at / fleet_size / "
+            "dispatcher) require fleet=<FLEETS name>; a single-device "
+            "cell would silently ignore them"
+        )
+
+
+class SweepRunner:
+    """Fans a sweep grid across processes; serial ≡ parallel, bitwise.
+
+    The runner holds the per-sweep invariants (execution table, optional
+    restricted scheduler table, deployment map, service-noise CoV); the
+    :class:`SweepSpec` holds everything that varies cell to cell. Both are
+    picklable, which is the only requirement for the process fan-out.
+    """
+
+    def __init__(
+        self,
+        table: ProfileTable,
+        sched_table: Optional[ProfileTable] = None,
+        model_map: Optional[Sequence[int]] = None,
+        service_noise_cov: float = 0.0,
+        data_pool: int = 10_000,
+    ):
+        self.table = table
+        self.sched_table = sched_table
+        self.model_map = list(model_map) if model_map is not None else None
+        self.service_noise_cov = service_noise_cov
+        self.data_pool = data_pool
+
+    # -- grid construction ---------------------------------------------------
+
+    def grid(
+        self,
+        policies: Sequence[str],
+        scenarios: Sequence[str] = ("poisson",),
+        rates: Sequence[float] = (100.0,),
+        seeds: Sequence[int] = (7,),
+        **common,
+    ) -> List[SweepSpec]:
+        """The full (policy × scenario × rate × seed) product, in that
+        nesting order; ``common`` fixes the remaining SweepSpec fields.
+
+        Policies sharing a (scenario, rate, seed) cell see identical arrival
+        traces — sweeps are paired comparisons by construction.
+        """
+        return [
+            SweepSpec(policy=p, scenario=sc, rate=r, seed=s, **common)
+            for p, sc, r, s in itertools.product(policies, scenarios, rates, seeds)
+        ]
+
+    def cluster_grid(self, *args, **kwargs) -> List[SweepSpec]:
+        """The reference's (dispatcher × fleet × ...) cluster product; the
+        cluster tier is not ported yet."""
+        raise NotImplementedError(
+            "SweepRunner.cluster_grid (the cluster tier) is not ported to "
+            "repro_torch yet")
+
+    # -- execution -----------------------------------------------------------
+
+    def simulator(self, spec: SweepSpec) -> ServingSimulator:
+        """The cell's simulator, with its scheduler, as :meth:`run_cell`
+        runs it (for callers that want the run's traces too)."""
+        _check_ported(spec)
+        cfg = SchedulerConfig(slo=spec.slo, max_batch=spec.max_batch,
+                              backend=spec.backend, device=spec.device)
+        sched = make_scheduler(spec.policy, self.sched_table or self.table,
+                               cfg)
+        return ServingSimulator(
+            sched,
+            self.table,
+            num_models=len(spec.rate_vector()),
+            service_noise_cov=self.service_noise_cov,
+            model_map=self.model_map,
+            seed=spec.seed,
+            drift=make_drift(spec.drift, **dict(spec.drift_kwargs)),
+            adapt=spec.adapt,
+        )
+
+    def arrivals(self, spec: SweepSpec):
+        """The cell's arrival trace, drawn from its own seed."""
+        process = make_scenario(
+            spec.scenario, spec.rate_vector(), deadlines=spec.deadlines,
+            **dict(spec.scenario_kwargs),
+        )
+        return process.generate(
+            spec.horizon, seed=spec.seed, data_pool=self.data_pool
+        )
+
+    def run_cell(self, spec: SweepSpec) -> SweepResult:
+        """One serving experiment, fully determined by (runner, spec)."""
+        t0 = time.perf_counter()
+        sim = self.simulator(spec)
+        res = sim.run(self.arrivals(spec), spec.horizon,
+                      warmup_tasks=spec.warmup_tasks)
+        us = (time.perf_counter() - t0) * 1e6
+        return SweepResult(spec, res.metrics, us)
+
+    def run(
+        self, specs: Sequence[SweepSpec], workers: Optional[int] = 1
+    ) -> List[SweepResult]:
+        """Run the grid; results are in ``specs`` order.
+
+        ``workers=1`` runs serially in-process; ``workers=None`` uses one
+        worker per CPU (capped at the grid size). Parallel output is
+        bitwise-identical to serial — only ``us_per_call`` (wall timing)
+        differs between runs.
+
+        Like any ``spawn``-based multiprocessing client, ``workers > 1``
+        needs an importable ``__main__`` (a script or pytest — not a REPL
+        heredoc). Each worker builds its own scoring backend, so a cell
+        with ``device=None`` initialises the card in its worker.
+        """
+        specs = list(specs)
+        if not specs:
+            return []
+        if workers is None:
+            workers = os.cpu_count() or 1
+        workers = max(1, min(int(workers), len(specs)))
+        if workers == 1:
+            return [self.run_cell(s) for s in specs]
+        # spawn, not fork: the parent may hold CUDA state and torch's
+        # threads, whose locks a forked child would inherit mid-flight.
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers, mp_context=ctx
+        ) as pool:
+            futures = [pool.submit(_run_cell, self, s) for s in specs]
+            return [f.result() for f in futures]

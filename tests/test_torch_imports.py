@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/``, not
-``chip_smoke.py`` and not the port's measurement script
-``tools/scoring_round_split.py`` imports JAX or the reference package
-``repro``."""
+``chip_smoke.py``, not the port's measurement script
+``tools/scoring_round_split.py`` and no example under ``examples_torch/``
+imports JAX or the reference package ``repro``."""
 
 import ast
 from pathlib import Path
@@ -10,6 +10,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -38,14 +39,16 @@ def test_port_package_is_present():
                    "core/workloads.py", "core/traffic.py", "core/metrics.py",
                    "models/common.py", "models/resnet.py",
                    "configs/edgeserving_resnets.py", "runtime/server.py",
-                   "models/convert.py"):
+                   "models/convert.py", "core/simulator.py", "core/sweep.py",
+                   "core/adaptive.py", "launch/serve.py"):
         assert module in names, module
     assert (ROOT / "src" / "repro_torch" / "csrc" / "stability_score.cu").exists()
+    assert [p.name for p in EXAMPLES] == ["quickstart.py"]
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py",
-                          ROOT / "tools" / "scoring_round_split.py"],
+    "path", PORT_FILES + EXAMPLES + [ROOT / "chip_smoke.py",
+                                     ROOT / "tools" / "scoring_round_split.py"],
     ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_reference_import(path):
     bad = [(mod, line) for mod, line in _imported_roots(path)
