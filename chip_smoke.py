@@ -44,25 +44,49 @@ early-exit LMs (served quanta and KV-cache decode):
    snapshots and tables (float32 ties aside), and the stability kernel
    launches once per scoring round; each backend's host time per round and
    wall time per cell;
-7. the LMs on the card against the CPU in float32: SmolLM-135M at full
+7. fleets (``fleet``): the four fig14 cells (the heterogeneous fleet of 4
+   under stability-aware, round-robin and JSQ dispatch, and one device under
+   least-loaded) through ``SweepRunner.run_cell`` and the cell's
+   ``ClusterSimulator`` with every device's rounds recorded, with the
+   ``numpy`` and the ``cuda`` backend: the numpy runs hold the fig14
+   goldens at rtol 1e-9 and their quoted strings, the ``cuda`` runs decide
+   as the numpy shadow does and (with no float32 tie) give its metrics,
+   stability launches = the devices' scoring rounds, and every arrival is
+   completed, dropped or residual; then the het stability-aware cell with
+   device 1 failing at 2 s, traced under ``cuda``: fail-over events, one
+   span per arrival, numpy's metrics, and launches = scoring rounds + the
+   traced rounds ``decision_margin`` scores again; per-device round means
+   and wall times;
+8. the LMs on the card against the CPU in float32: SmolLM-135M at full
    width and depth at every exit, Phi-4-mini and Qwen3-8B at full width cut
    to 2 layers and one exit;
-8. KV-cache decode on the card against the CPU in float32, the same models
+9. KV-cache decode on the card against the CPU in float32, the same models
    and cuts: prefill, then 16 teacher-forced decode steps; logits and
    caches against the CPU's, logits against ``forward_exit``;
-9. live LM serving: SmolLM-135M, Phi-4-mini and Qwen3-8B at full width and
+10. live LM serving: SmolLM-135M, Phi-4-mini and Qwen3-8B at full width and
    depth in bfloat16, ``measure_profile`` over 3 x 4 x 4 cells, then a 3 s
    Poisson trace at 3:2:1 whose total rate keeps the card 90% busy at the
    final exit and B = 8, served with the ``cuda`` scoring backend and the
    float64 shadow; each LM kernel's launches must equal the count implied
    by the engine's decisions;
-10. KV-cache decode of the same three models in bfloat16: B = 1 and 8 at the
+11. KV-cache decode of the same three models in bfloat16: B = 1 and 8 at the
    first and final exit, 32 greedy steps after the 128-token prompt; step
    time on the host, device time by kernel class, idle share, peak memory;
    decode-attention and rmsnorm launches must equal the count the steps
    imply, and the profiled step must run one decode-attention kernel a
    layer;
-11. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
+12. the ``serve_multi_model`` LMs (``lm_multi``): the three float32 LMs of
+   ``examples/serve_multi_model.py`` (head dims 16 and 32) built by
+   ``examples_torch/serve_multi_model.py``, card against CPU at every exit,
+   their kernels against the plain versions at their shapes (flash
+   attention at D = 16 and 32), ``measure_profile`` over B in {1, 2, 4, 8},
+   then 3 s of Poisson 3:2:1 traffic at 150 req/s served with the ``cuda``
+   backend, an ``OnlineProfiler`` and a ``Tracer`` beside the numpy shadow:
+   launches as the quanta imply (stability: scoring rounds + re-scored
+   traced rounds), refresh events = ``profiler_refreshes``, one span per
+   arrival, ``tools/tracestats.py`` reading both exports, and one profiled
+   quantum per model (idle share);
+13. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
 
 Each phase prints JSON lines. Any failed check raises, so the script exits
 non-zero before the last line. Without a CUDA device, or outside a checkout
@@ -72,8 +96,10 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -757,6 +783,183 @@ def phase_sim(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: fleets, the cluster tier and its telemetry
+# ---------------------------------------------------------------------------
+
+FIG14_CELLS = ("het/stability-aware", "het/round-robin", "het/jsq",
+               "scaling/G1/least-loaded")
+FAIL_AT = ((1, 2.0),)  # the fail-over cell: device 1 of the het fleet
+
+
+def fig14_fields(cell):
+    """The SweepSpec fields of a fig14 golden cell
+    (``tests/test_golden_metrics.py``)."""
+    leg, dispatcher = cell.split("/")[0], cell.rsplit("/", 1)[1]
+    fleet, size, rate = (("heterogeneous", 4, 640.0) if leg == "het"
+                         else ("homogeneous", 1, 140.0))
+    return dict(policy="edgeserving", scenario="mmpp", rate=rate, seed=7,
+                horizon=6.0, fleet=fleet, fleet_size=size,
+                dispatcher=dispatcher)
+
+
+def run_recorded_cluster(sim, arrivals, spec):
+    """Run a ``ClusterSimulator`` with every device's scheduler recorded
+    (``record_rounds``): the schedulers are made inside ``run``, so the
+    cluster module's ``make_scheduler`` is wrapped for the call. Returns
+    (the result, one list of rounds per device, the stability launches,
+    host seconds)."""
+    from repro_torch.core import cluster
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    make, per_device = cluster.make_scheduler, []
+
+    def recorded(*args, **kwargs):
+        sched = make(*args, **kwargs)
+        per_device.append(record_rounds(sched))
+        return sched
+
+    cluster.make_scheduler = recorded
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sim.run(arrivals, spec.horizon, warmup_tasks=spec.warmup_tasks)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts["stability_score"]
+    finally:
+        cluster.make_scheduler = make
+    return res, per_device, launches, seconds
+
+
+def _conserved(res, arrivals):
+    m = res.metrics
+    return len(res.completions) + m.dropped + m.residual_queue == len(
+        arrivals)
+
+
+def phase_fleet(device):
+    """The four fig14 cells through ``SweepRunner.run_cell``, each with the
+    ``numpy`` and the ``cuda`` scoring backend, then again through the
+    cell's ``ClusterSimulator`` with every device's rounds recorded. The
+    numpy runs must hold the fig14 goldens at rtol 1e-9 (quoted strings
+    too); the ``cuda`` runs must decide as the numpy shadow does on the same
+    snapshots and per-device tables (float32 ties aside) and, with no tie,
+    give the numpy cell's metrics; the stability kernel must launch once per
+    scoring round, summed over the devices; completed + dropped + residual
+    must equal the arrivals. Then the het stability-aware cell with device
+    1 failing at 2 s, traced, under ``cuda``: its failure and fail-over
+    events, its spans (one per arrival), its metrics equal to the numpy
+    run's, and launches = scoring rounds + traced rounds with two or more
+    candidates (``decision_margin`` scores each such round again). Returns
+    the kernel's launches in the ``run_cell`` runs and the fail-over run."""
+    import torch
+
+    from repro_torch.core import ProfileTable, SweepRunner, SweepSpec
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    on_card = torch.device(device).type == "cuda"
+    golden = json.loads(GOLDEN.read_text())["fig14"]
+    runner = SweepRunner(ProfileTable.paper_rtx3080())
+    total_launches, t_phase = 0, time.perf_counter()
+    for name in FIG14_CELLS:
+        runs = {}
+        for backend in ("numpy", "cuda"):
+            spec = SweepSpec(**fig14_fields(name), backend=backend,
+                             device=device)
+            reset_launch_counts()
+            cell = runner.run_cell(spec)
+            launches = launch_counts["stability_score"]
+            arrivals = runner.arrivals(spec)
+            res, per_device, recorded_launches, recorded_s = (
+                run_recorded_cluster(runner.simulator(spec), arrivals, spec))
+            scored = [[r for r in rounds if r[0].nonempty()]
+                      for rounds in per_device]
+            n_scored = sum(len(sc) for sc in scored)
+            check(res.metrics == cell.metrics,
+                  f"{name}/{backend}: the recorded run differs from run_cell")
+            want = n_scored if on_card and backend == "cuda" else 0
+            check(launches == want and recorded_launches == want,
+                  f"{name}/{backend}: stability launches {launches} and "
+                  f"{recorded_launches}, want {want} (scoring rounds "
+                  f"{n_scored} over {len(scored)} devices)")
+            check(_conserved(res, arrivals),
+                  f"{name}/{backend}: completed + dropped + residual != "
+                  f"arrivals")
+            runs[backend] = dict(cell=cell, scored=scored,
+                                 launches=launches, recorded_s=recorded_s)
+        total_launches += runs["cuda"]["launches"]
+        f64, f32 = runs["numpy"], runs["cuda"]
+        got, want = f64["cell"].metrics.violation_ratio, golden[name]
+        check(bool(np.isclose(got, want["violation_ratio"],
+                              rtol=GOLDEN_RTOL, atol=0.0))
+              and f"{got * 100:.2f}%" == want["quoted"],
+              f"{name}: golden {got!r} != {want['violation_ratio']!r} "
+              f"({want['quoted']})")
+        _, ties = shadow_check(f"fleet_shadow/{name}",
+                               [r for sc in f32["scored"] for r in sc],
+                               max_batch=10)
+        if ties == 0:
+            check(f32["cell"].metrics == f64["cell"].metrics,
+                  f"{name}: cuda metrics differ from numpy with no tie")
+        emit("fleet", cell=name, title=f32["cell"].spec.title(),
+             arrivals=len(arrivals), devices=len(f32["scored"]),
+             scoring_rounds=[len(sc) for sc in f32["scored"]],
+             kernel_launches=f32["launches"], float32_ties=ties,
+             violation_ratio={b: runs[b]["cell"].metrics.violation_ratio
+                              for b in runs},
+             quoted=want["quoted"],
+             round_us_per_device={
+                 b: [_round_us(sc)["mean"] if sc else None
+                     for sc in runs[b]["scored"]] for b in runs},
+             wall_s={b: runs[b]["cell"].us_per_call / 1e6 for b in runs},
+             recorded_s={b: runs[b]["recorded_s"] for b in runs},
+             dispatch_counts=[d.dispatched
+                              for d in f32["cell"].metrics.per_device])
+    # the fail-over cell, traced
+    runs = {}
+    for backend in ("numpy", "cuda"):
+        spec = SweepSpec(**fig14_fields(FIG14_CELLS[0]), fail_at=FAIL_AT,
+                         backend=backend, device=device, trace=True)
+        arrivals = runner.arrivals(spec)
+        res, per_device, launches, seconds = run_recorded_cluster(
+            runner.simulator(spec), arrivals, spec)
+        runs[backend] = dict(res=res, launches=launches, seconds=seconds,
+                             scored=sum(len([r for r in rounds
+                                             if r[0].nonempty()])
+                                        for rounds in per_device))
+    f64, f32 = runs["numpy"], runs["cuda"]
+    trace = f32["res"].trace
+    kinds = [e.kind for e in trace.events]
+    failure = [e for e in trace.events if e.kind == "device-failure"]
+    counts = trace.span_counts()
+    rescored = sum(1 for r in trace.decisions if math.isfinite(r.margin))
+    want = f32["scored"] + rescored if on_card else 0
+    emit("fleet_failover", cell=FIG14_CELLS[0], fail_at=list(FAIL_AT),
+         arrivals=len(arrivals), spans=counts, events=kinds.count("failover"),
+         orphans=failure[0].payload_dict()["orphans"] if failure else None,
+         scoring_rounds=f32["scored"], rescored_rounds=rescored,
+         kernel_launches=f32["launches"], seconds=f32["seconds"],
+         violation_ratio={b: runs[b]["res"].metrics.violation_ratio
+                          for b in runs},
+         alive=[d.alive for d in f32["res"].metrics.per_device])
+    check(len(failure) == 1 and kinds.count("failover") == 1
+          and failure[0].device == 1 and failure[0].t == FAIL_AT[0][1],
+          f"fail-over events {kinds}")
+    check(not f32["res"].metrics.per_device[1].alive, "device 1 still alive")
+    check(len(trace.spans) == len(arrivals) == trace.meta["n_arrivals"]
+          and counts["completed"] == len(f32["res"].completions)
+          and counts["dropped"] == f32["res"].metrics.dropped
+          and counts["residual"] == f32["res"].metrics.residual_queue,
+          f"fail-over spans {counts} against {len(arrivals)} arrivals")
+    check(f32["res"].metrics == f64["res"].metrics,
+          "fail-over cell: cuda metrics differ from numpy")
+    check(f32["launches"] == want,
+          f"fail-over cell: stability launches {f32['launches']}, want "
+          f"{want} (scoring rounds {f32['scored']} + re-scored {rescored})")
+    emit("fleet_phase", seconds=time.perf_counter() - t_phase)
+    return total_launches + f32["launches"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1105,7 +1308,7 @@ def phase_lm_kernels(configs, device):
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the LMs on the card against the CPU, float32
+# Phase 8: the LMs on the card against the CPU, float32
 # ---------------------------------------------------------------------------
 
 
@@ -1195,7 +1398,7 @@ def phase_lm_models(configs, device, seq=LM_PROMPT):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: KV-cache decode of the LMs on the card against the CPU, float32
+# Phase 9: KV-cache decode of the LMs on the card against the CPU, float32
 # ---------------------------------------------------------------------------
 
 
@@ -1309,7 +1512,7 @@ def phase_lm_decode_models(configs, device, prompt=DECODE_CHECK["prompt"],
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: live LM serving
+# Phase 10: live LM serving
 # ---------------------------------------------------------------------------
 
 
@@ -1484,7 +1687,7 @@ def lm_breakdown(served):
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: KV-cache decode of the served LMs, bfloat16, full size
+# Phase 11: KV-cache decode of the served LMs, bfloat16, full size
 # ---------------------------------------------------------------------------
 
 
@@ -1624,6 +1827,226 @@ def phase_lm_decode(served, device, steps=DECODE_STEPS,
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the serve_multi_model LMs live, with a tracer and a profiler
+# ---------------------------------------------------------------------------
+
+MULTI_EXAMPLE = ROOT / "examples_torch" / "serve_multi_model.py"
+MULTI_RATE = 150.0  # the reference example's default, req/s at 3:2:1
+MULTI_SEED = 42     # the reference example's trace seed
+MULTI_REFRESH_S = 0.25
+
+
+def load_multi_example():
+    """``examples_torch/serve_multi_model.py`` as a module (its
+    ``deployment_configs`` and ``make_deployment``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("serve_multi_model",
+                                                  MULTI_EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _multi_kernel_checks(served, device):
+    """The LM kernels against their plain versions at the shapes these
+    models serve, in float32 (their dtype) and bfloat16: rmsnorm rows of
+    B x 16 and the exit-norm rows of B at D = 64, 128; flash attention at
+    B, 4 heads, 2 kv heads, S = 16 and D = 16, 32 (the CUDA-core float32
+    kernel; the served-shape checks of phase 3 run D = 64 and 128 only);
+    the exit head at T = B, V = 512. The float32 cases at B = 8 are timed
+    (CUDA-graph replay) beside the bound, the plain version and the library
+    call. Returns ({kernel: max abs err}, {kernel: {label: timing}})."""
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.exit_head.ops import exit_head
+    from repro_torch.kernels.exit_head.ref import exit_head_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
+
+    def attention(q, k, v, causal):
+        return flash_attention(q, k, v, causal=causal)
+
+    wrappers = {"rmsnorm": (rmsnorm, rmsnorm_plain),
+                "flash_attention": (attention, flash_attention_plain),
+                "exit_head": (exit_head, exit_head_plain)}
+    cases = []
+    for mod in served:
+        cfg = mod.values.cfg
+        for b in LM_BATCHES:
+            tag = f"{mod.name}/b{b}"
+            cases += [("rmsnorm", f"{tag}/rows", (b * 16, cfg.d_model)),
+                      ("rmsnorm", f"{tag}/exit", (b, cfg.d_model)),
+                      ("flash_attention", f"{tag}/d{cfg.head_dim_}",
+                       (b, cfg.num_heads, cfg.num_kv_heads, 16,
+                        cfg.head_dim_, True)),
+                      ("exit_head", tag, (b, cfg.d_model, cfg.vocab_size))]
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in wrappers}
+    timings = {k: {} for k in wrappers}
+    for kernel, label, shape in cases:
+        fn, plain = wrappers[kernel]
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            args = _lm_kernel_inputs(kernel, shape, dtype, dev, gen)
+            got = fn(*args)
+            synchronize(dev)
+            errs[kernel][dname] = max(errs[kernel][dname], _lm_compare(
+                kernel, args, got, plain(*args), dname, label))
+            if dname != "float32" or not label.split("/")[1].endswith(
+                    f"b{LM_BATCHES[-1]}") or dev.type != "cuda":
+                continue
+            nbytes, ops, rate = _lm_kernel_cost(kernel, shape, dtype, args)
+            bound, bound_by = _bound_ms(nbytes, ops, rate)
+            lib = _lm_library(kernel, args)
+            timings[kernel][f"lm_multi/{label}"] = dict(
+                shape=list(shape), dtype=dname,
+                ms=graph_ms(lambda: fn(*args), 20),
+                plain_ms=cuda_ms(lambda: plain(*args), 5),
+                library_ms=None if lib is None else cuda_ms(lib, 20),
+                bound_ms=bound, bound_by=bound_by)
+    return errs, timings
+
+
+def _tracestats(path):
+    """``tools/tracestats.py`` on one export; its exit code and the head
+    of what it printed."""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "tracestats.py"), str(path),
+         "--top", "3", "--bins", "5"],
+        capture_output=True, text=True, timeout=120)
+    return out.returncode, out.stdout.splitlines()[:3] + out.stderr.splitlines(
+    )[-3:]
+
+
+def phase_lm_multi(device, duration=HORIZON_S):
+    """The three LMs of ``examples/serve_multi_model.py`` (built by the
+    port's example, float32, on the card): each model's ``forward_exit`` and
+    served quantum against the same module on the CPU at every exit; the
+    LM kernels against their plain versions at these models' shapes (flash
+    attention at D = 16 and 32); ``measure_profile`` over B in {1, 2, 4, 8};
+    then a Poisson 3:2:1 trace at 150 req/s for ``duration`` s served by
+    ``ServingEngine`` with the ``cuda`` backend, an ``OnlineProfiler`` and a
+    ``Tracer``, and a float64 numpy shadow on the same snapshots and tables.
+    Checks: no decision differs from the shadow beyond float32 ties; each
+    LM kernel's launches equal the count the quanta imply, and the
+    stability kernel's the scoring rounds plus the traced rounds with two
+    or more candidates; ``profiler_refreshes`` equals the trace's refresh
+    events; one span per arrival; ``tools/tracestats.py`` reads both
+    exports. Returns the launches of the served run, by kernel."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import (
+        AdaptConfig,
+        OnlineProfiler,
+        SchedulerConfig,
+        Tracer,
+        export_chrome_trace,
+        export_ndjson,
+        make_scheduler,
+        poisson_arrivals,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.server import ServingEngine, measure_profile
+
+    t_phase = time.perf_counter()
+    example = load_multi_example()
+    served = example.make_deployment(device)
+    errs = {}
+    for mod in served:
+        cfg = mod.values.cfg
+        errs.update(_lm_check_pair(copy.deepcopy(mod.values), 4,
+                                   example.PROMPT_LEN, range(cfg.num_exits),
+                                   mod.name))
+    kernel_errs, timings = _multi_kernel_checks(served, device)
+    emit("lm_multi_models", max_abs_err_vs_cpu=errs, tol=LM_TOL["float32"],
+         kernel_max_abs_err=kernel_errs, kernel_timings=timings,
+         head_dims=[m.values.cfg.head_dim_ for m in served])
+
+    for mod in served:  # one untimed pass over every cell (clocks)
+        for e in range(mod.num_exits):
+            for b in LM_BATCHES:
+                mod.forward_fn(mod.values, mod.data_fn(b), e)
+    table = measure_profile(served, batch_sizes=list(LM_BATCHES), repeats=5,
+                            warmup=2)
+    slo = float(table.latency.max() * 5)  # the example's SLO rule
+    cfg = SchedulerConfig(slo=slo, max_batch=LM_BATCHES[-1], backend="cuda",
+                          device=device)
+    sched = make_scheduler("edgeserving", table, cfg)
+    rounds = record_rounds(sched)
+    tracer = Tracer()
+    engine = ServingEngine(
+        served, sched,
+        profiler=OnlineProfiler(table, AdaptConfig(
+            refresh_every=MULTI_REFRESH_S)),
+        tracer=tracer)
+    engine.warmup(list(LM_BATCHES))
+    del rounds[:]
+    unit = MULTI_RATE / 6.0
+    arrivals = poisson_arrivals([3 * unit, 2 * unit, unit], duration,
+                                seed=MULTI_SEED)
+    reset_launch_counts()
+    completions, span = engine.run(arrivals, duration, drain=True)
+    launches = {k: launch_counts[k] for k in KERNELS}
+    m = engine.metrics(table, slo, span)
+    trace = engine.trace(horizon=duration, span=span,
+                         warmup_used=m.warmup_used, n_arrivals=len(arrivals))
+    decisions = [r[1] for r in rounds if r[1] is not None]
+    scored = [r for r in rounds if r[0].nonempty()]
+    rescored = sum(1 for r in trace.decisions if math.isfinite(r.margin))
+    want = _expected_launches(served, decisions)
+    want["stability_score"] = len(scored) + rescored
+    refresh_events = [e for e in trace.events if e.kind == "profiler-refresh"]
+    with tempfile.TemporaryDirectory() as tmp:
+        exports = {"ndjson": export_ndjson(trace, f"{tmp}/live.ndjson"),
+                   "chrome": export_chrome_trace(trace, f"{tmp}/live.json")}
+        stats = {k: _tracestats(p) for k, p in exports.items()}
+    lat_ms = table.latency * 1e3
+    emit("lm_multi_serve", arrivals=len(arrivals),
+         completed=len(completions), dropped=engine.dropped,
+         residual=m.residual_queue, span_s=span, slo_ms=slo * 1e3,
+         b1_ms={f"{table.model_names[i]}/{table.exit_names[e]}":
+                float(lat_ms[i, e, 0]) for i in range(len(served))
+                for e in range(table.num_exits)},
+         p95_ms=m.p95_latency * 1e3, p50_ms=m.p50_latency * 1e3,
+         violation_ratio=m.violation_ratio,
+         mean_exit_depth=m.mean_exit_depth, utilization=m.utilization,
+         mean_batch=m.mean_batch, quanta=len(decisions),
+         scoring_rounds=len(scored), rescored_rounds=rescored,
+         counters=engine.counters, refresh_events=len(refresh_events),
+         tables=len({id(r[2]) for r in rounds}),
+         spans=trace.span_counts(), launches=launches,
+         launches_implied=want, tracestats=stats)
+    check(len(completions) + engine.dropped + m.residual_queue
+          == len(arrivals), "lm_multi arrivals not conserved")
+    check(len(trace.spans) == len(arrivals),
+          f"{len(trace.spans)} spans for {len(arrivals)} arrivals")
+    check(len(decisions) > 0, "no lm_multi quantum ran")
+    check(engine.counters["profiler_refreshes"] == len(refresh_events) > 0,
+          f"profiler_refreshes {engine.counters['profiler_refreshes']} vs "
+          f"{len(refresh_events)} refresh events")
+    for kernel, n in want.items():
+        n = n if torch.device(device).type == "cuda" else 0
+        check(launches[kernel] == n,
+              f"lm_multi {kernel} launches {launches[kernel]} != {n} "
+              f"implied")
+    for kind, (rc, lines) in stats.items():
+        check(rc == 0, f"tracestats on the {kind} export: rc {rc} {lines}")
+    shadow_check("lm_multi_shadow", scored, max_batch=LM_BATCHES[-1],
+                 slo=slo)
+    breakdown = lm_breakdown(served)
+    emit("lm_multi_phase", seconds=time.perf_counter() - t_phase,
+         idle_share={k: v["idle_share"] for k, v in breakdown.items()})
+    return launches, timings
+
+
+# ---------------------------------------------------------------------------
 # The kernel summary line
 # ---------------------------------------------------------------------------
 
@@ -1644,12 +2067,14 @@ LM_KERNEL_ROWS = {
 }
 
 
-def kernel_summary(kernel, resnet_launches, sim_launches, lm_kernels,
-                   lm_launches, decode_launches):
+def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
+                   lm_kernels, lm_launches, decode_launches, multi_launches,
+                   multi_timings):
     """One entry per kernel of the port's paths, with every key of the
-    contract; the stability score's launches are both serving runs' and
-    the simulated cells', and rmsnorm's those of the LM serve and the
-    decode phase."""
+    contract; the stability score's launches are the three serving runs',
+    the simulated cells' and the fleet cells', and the LM kernels' those of
+    the LM serve, the decode phase and the serve_multi_model run (whose
+    timed shapes join each row's ``cases``)."""
     t3 = kernel["timings"]["m3"]
     t256 = kernel["timings"]["m256"]
     rows = [{
@@ -1657,11 +2082,14 @@ def kernel_summary(kernel, resnet_launches, sim_launches, lm_kernels,
         "route": "cuda",
         "source": "src/repro_torch/csrc/stability_score.cu",
         "replaces": "src/repro/kernels/stability_score/kernel.py:35",
-        "launches": (resnet_launches + sim_launches
-                     + lm_launches["stability_score"]),
+        "launches": (resnet_launches + sim_launches + fleet_launches
+                     + lm_launches["stability_score"]
+                     + multi_launches["stability_score"]),
         "launches_resnet_serve": resnet_launches,
         "launches_sim": sim_launches,
+        "launches_fleet": fleet_launches,
         "launches_lm_serve": lm_launches["stability_score"],
+        "launches_lm_multi": multi_launches["stability_score"],
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": t3["ms"],
@@ -1682,7 +2110,8 @@ def kernel_summary(kernel, resnet_launches, sim_launches, lm_kernels,
         timings = lm_kernels["timings"][name]
         t = timings[main_case]
         paths = {"lm_serve": lm_launches.get(name, 0),
-                 "lm_decode": decode_launches.get(name, 0)}
+                 "lm_decode": decode_launches.get(name, 0),
+                 "lm_multi": multi_launches.get(name, 0)}
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(paths.values()),
@@ -1694,7 +2123,7 @@ def kernel_summary(kernel, resnet_launches, sim_launches, lm_kernels,
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("path", "cold_ms") if k in t},
-            "cases": timings,
+            "cases": {**timings, **multi_timings.get(name, {})},
         })
         f32 = timings.get(f"{main_case}/float32")
         if f32 is not None:
@@ -1728,14 +2157,18 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     sim_launches = phase_sim("cuda")
+    fleet_launches = phase_fleet("cuda")
     phase_lm_models(lm_configs, "cuda")
     phase_lm_decode_models(lm_configs, "cuda")
     lm_launches, served = phase_lm_serving(lm_configs, "cuda")
     decode_launches = phase_lm_decode(served, "cuda")
     del served
+    torch.cuda.empty_cache()
+    multi_launches, multi_timings = phase_lm_multi("cuda")
     print(json.dumps({"kernels": kernel_summary(
-        kernel, resnet_launches, sim_launches, lm_kernels, lm_launches,
-        decode_launches)}), flush=True)
+        kernel, resnet_launches, sim_launches, fleet_launches, lm_kernels,
+        lm_launches, decode_launches, multi_launches, multi_timings)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,14 @@
 """EdgeServing core on PyTorch: queues, profile tables, the Algorithm-1
 scheduler and its baselines, scoring backends, the workload scenarios,
-online adaptation, the event-driven serving simulator, the sweep harness
-and metrics.
+online adaptation, the event-driven serving simulator, the cluster tier
+(fleets, dispatchers, per-device metrics), telemetry, the sweep harness and
+metrics.
 
 Host bookkeeping stays numpy float64, op for op the reference's
 (``src/repro/core``); what the reference computes in jnp or Pallas runs here
-as float32 torch tensors or the CUDA kernel.
+as float32 torch tensors or the CUDA kernel. The reference's compiled scan
+tiers (``simfast``, ``clusterfast``, ``seedband``) are not ported yet, so
+their names are not exported here.
 """
 
 from repro_torch.core.adaptive import (
@@ -21,7 +24,29 @@ from repro_torch.core.adaptive import (
     make_profiler,
 )
 from repro_torch.core.baselines import SCHEDULERS, make_scheduler
-from repro_torch.core.metrics import ModelMetrics, ServingMetrics, summarize
+from repro_torch.core.cluster import (
+    DISPATCHERS,
+    FLEETS,
+    ClusterResult,
+    ClusterSimulator,
+    DeviceLoadView,
+    DeviceSpec,
+    Dispatcher,
+    JoinShortestQueueDispatcher,
+    LeastLoadedDispatcher,
+    RoundRobinDispatcher,
+    StabilityAwareDispatcher,
+    drain_cell,
+    drain_estimate,
+    make_dispatcher,
+    make_fleet,
+)
+from repro_torch.core.metrics import (
+    DeviceMetrics,
+    ModelMetrics,
+    ServingMetrics,
+    summarize,
+)
 from repro_torch.core.profile import ProfileTable
 from repro_torch.core.queues import QueueSnapshot, ServiceQueue
 from repro_torch.core.request import Completion, Decision, Request, ServingTrace
@@ -35,6 +60,20 @@ from repro_torch.core.scheduler import (
 from repro_torch.core.scoring import SCORING_BACKENDS, make_scoring_backend
 from repro_torch.core.simulator import ServingSimulator, SimResult, run_experiment
 from repro_torch.core.sweep import SweepResult, SweepRunner, SweepSpec
+from repro_torch.core.telemetry import (
+    EVENT_KINDS,
+    DecisionRecord,
+    RequestSpan,
+    TimelineMetrics,
+    Trace,
+    TraceEvent,
+    Tracer,
+    decision_margin,
+    export_chrome_trace,
+    export_ndjson,
+    load_ndjson,
+    timeline_metrics,
+)
 from repro_torch.core.traffic import paper_rate_vector, poisson_arrivals
 from repro_torch.core.workloads import (
     SCENARIOS,
@@ -51,18 +90,25 @@ from repro_torch.core.workloads import (
 )
 
 __all__ = [
-    "AdaptConfig", "ArrivalProcess", "Completion", "ContentionDrift",
-    "DRIFTS", "DVFSStepDrift", "Decision", "DiurnalProcess", "DriftModel",
-    "EdgeServingScheduler", "FlashCrowdProcess",
-    "LatticeEdgeServingScheduler", "MMPPProcess", "ModelMetrics",
-    "OnlineProfiler", "PoissonProcess", "ProfileTable", "QueueSnapshot",
-    "Request", "SCENARIOS", "SCHEDULERS", "SCORING_BACKENDS",
-    "SafetyController", "Scheduler", "SchedulerConfig", "ServiceQueue",
-    "ServingMetrics", "ServingSimulator", "ServingTrace", "SimResult",
-    "SweepResult", "SweepRunner", "SweepSpec", "ThermalThrottleDrift",
-    "TraceReplayProcess", "VectorizedEdgeServingScheduler",
-    "burstiness_index", "interarrival_cov", "make_drift", "make_profiler",
-    "make_scenario", "make_scheduler", "make_scoring_backend",
-    "paper_rate_vector", "poisson_arrivals", "record_trace",
-    "run_experiment", "summarize",
+    "AdaptConfig", "ArrivalProcess", "ClusterResult", "ClusterSimulator",
+    "Completion", "ContentionDrift", "DISPATCHERS", "DRIFTS",
+    "DVFSStepDrift", "Decision", "DecisionRecord", "DeviceLoadView",
+    "DeviceMetrics", "DeviceSpec", "Dispatcher", "DiurnalProcess",
+    "DriftModel", "EVENT_KINDS", "EdgeServingScheduler", "FLEETS",
+    "FlashCrowdProcess", "JoinShortestQueueDispatcher",
+    "LatticeEdgeServingScheduler", "LeastLoadedDispatcher", "MMPPProcess",
+    "ModelMetrics", "OnlineProfiler", "PoissonProcess", "ProfileTable",
+    "QueueSnapshot", "Request", "RequestSpan", "RoundRobinDispatcher",
+    "SCENARIOS", "SCHEDULERS", "SCORING_BACKENDS", "SafetyController",
+    "Scheduler", "SchedulerConfig", "ServiceQueue", "ServingMetrics",
+    "ServingSimulator", "ServingTrace", "SimResult",
+    "StabilityAwareDispatcher", "SweepResult", "SweepRunner", "SweepSpec",
+    "ThermalThrottleDrift", "TimelineMetrics", "Trace", "TraceEvent",
+    "TraceReplayProcess", "Tracer", "VectorizedEdgeServingScheduler",
+    "burstiness_index", "decision_margin", "drain_cell", "drain_estimate",
+    "export_chrome_trace", "export_ndjson", "interarrival_cov",
+    "load_ndjson", "make_dispatcher", "make_drift", "make_fleet",
+    "make_profiler", "make_scenario", "make_scheduler",
+    "make_scoring_backend", "paper_rate_vector", "poisson_arrivals",
+    "record_trace", "run_experiment", "summarize", "timeline_metrics",
 ]

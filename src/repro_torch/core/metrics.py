@@ -31,6 +31,31 @@ class ModelMetrics:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeviceMetrics:
+    """Per-device breakdown of a cluster serving window.
+
+    One entry per device in ``ServingMetrics.per_device`` (cluster runs
+    only; empty for single-accelerator experiments). ``dispatched`` counts
+    requests routed to the device (including failover re-dispatches), so
+    ``dispatched - num_completed`` exposes skew between what a dispatcher
+    assigned and what the device actually finished post-warmup.
+    ``violation_ratio`` counts the device's shed requests as violations,
+    the same ``(late + dropped) / (done + dropped)`` rule as the aggregate.
+    """
+
+    device: int
+    name: str
+    num_completed: int
+    dispatched: int
+    dropped: int
+    violation_ratio: float
+    p95_latency: float
+    mean_exit_depth: float
+    utilization: float
+    alive: bool
+
+
+@dataclasses.dataclass(frozen=True)
 class ServingMetrics:
     """Aggregate results over a serving window (post-warmup completions)."""
 
@@ -50,7 +75,7 @@ class ServingMetrics:
     dropped: int = 0                # shed requests (Symphony); count as violations
     warmup_used: int = 0            # completions actually excluded (post-clamp)
     per_model: "tuple[ModelMetrics, ...]" = ()
-    per_device: tuple = ()  # cluster runs only (the cluster tier is not ported yet)
+    per_device: "tuple[DeviceMetrics, ...]" = ()  # cluster runs only
 
     def row(self) -> dict:
         return dataclasses.asdict(self)

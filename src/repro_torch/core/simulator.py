@@ -18,8 +18,8 @@ The event loop is host numpy float64, op for op the reference's
 (``src/repro/core/simulator.py``), so with the ``numpy`` scoring backend its
 metrics are bitwise the reference's. The only device work is the scheduler's
 scoring round: ``SchedulerConfig(backend="cuda")`` sends each round to the
-stability-score kernel. Telemetry (the reference's ``tracer=``) is not
-ported yet.
+stability-score kernel. A ``tracer=`` (``repro_torch.core.telemetry``) is
+record-only: decisions and metrics are bitwise those of an untraced run.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from repro_torch.core.profile import ProfileTable
 from repro_torch.core.queues import QueueSnapshot, ServiceQueue
 from repro_torch.core.request import Completion, Request, ServingTrace
 from repro_torch.core.scheduler import Scheduler
+from repro_torch.core.telemetry import Trace, Tracer, decision_margin
 from repro_torch.core.traffic import poisson_arrivals
 
 __all__ = ["SimResult", "ServingSimulator", "run_experiment",
@@ -48,18 +49,13 @@ class SimResult:
     traces: List[ServingTrace]
     span: float
     adapted_table: Optional[ProfileTable] = None  # final online-profiler view
-    trace: None = None  # the telemetry timeline: not ported, always None
-
-
-def _no_tracer(tracer) -> None:
-    if tracer is not None:
-        raise NotImplementedError(
-            "telemetry (tracer=) is not ported to repro_torch yet")
+    trace: Optional[Trace] = None  # telemetry timeline (tracer attached)
 
 
 def service_noise_multiplier(rng: np.random.Generator, cov: float) -> float:
     """Mean-1 lognormal service-time multiplier at coefficient of variation
-    ``cov`` (paper: CoV < 3%)."""
+    ``cov`` (paper: CoV < 3%). Shared by the single-device and cluster
+    simulators so their noise streams stay formula-identical."""
     sigma = np.sqrt(np.log1p(cov**2))
     return float(rng.lognormal(-0.5 * sigma**2, sigma))
 
@@ -78,7 +74,7 @@ class ServingSimulator:
         drain_cap: float = 600.0,
         drift: Optional[DriftModel] = None,
         adapt: Optional[AdaptConfig] = None,
-        tracer: None = None,
+        tracer: Optional[Tracer] = None,
     ):
         """Args:
           scheduler: the policy under test (its table may be a restricted
@@ -97,9 +93,11 @@ class ServingSimulator:
             service times feed an ``OnlineProfiler`` over the scheduler's
             table, which is swapped for a refreshed view on the configured
             cadence. ``None`` for both knobs is bitwise the stock simulator.
-          tracer: must be None; telemetry is not ported yet.
+          tracer: optional ``repro_torch.core.telemetry.Tracer``.
+            Record-only: with a tracer attached, decisions and metrics are
+            bitwise identical to an untraced run; ``None`` (the default)
+            skips every telemetry branch entirely.
         """
-        _no_tracer(tracer)
         self.scheduler = scheduler
         self.table = table
         self.num_models = num_models or table.num_models
@@ -109,6 +107,7 @@ class ServingSimulator:
         self.drain_cap = drain_cap
         self.drift = drift
         self.adapt = adapt
+        self.tracer = tracer
         self._seed = seed
 
     def _exec_row(self, m: int) -> int:
@@ -137,19 +136,29 @@ class ServingSimulator:
         t = 0.0
         next_arrival = 0  # index into the time-sorted arrival list
         n_arr = len(arrivals)
-        # The noise stream and the drift are re-seeded per run, not per
-        # construction: a second run() on the same instance replays the
-        # first bitwise, and a drift model shared across simulators cannot
-        # cross-contaminate their streams.
+        # The noise stream is re-seeded per run, like drift below: a second
+        # run() on the same instance with service_noise_cov > 0 must replay
+        # the identical multiplier sequence, not continue the first run's
+        # stream (rerun-bitwise determinism).
         self.rng = np.random.default_rng(self._seed ^ 0x5EED)
+        # Drift is re-seeded per run (not per construction): a model shared
+        # across simulators cannot cross-contaminate their streams, and
+        # run() stays deterministic under reruns.
         if self.drift is not None:
             self.drift.reset(self._seed ^ 0xD21F)
-        # Online adaptation adapts the *scheduler's* belief (which may be a
-        # restricted view); the execution table stays the ground truth. The
-        # original belief is restored on exit so run() stays rerunnable and
-        # sweep cells hermetic.
+        # Online adaptation: the profiler adapts the *scheduler's* belief
+        # (which may be a restricted view); the execution table stays the
+        # ground truth. The original belief is restored on exit so run()
+        # stays rerunnable / sweep cells hermetic.
         profiler = make_profiler(self.scheduler.table, self.adapt)
         static_table = self.scheduler.table
+        # Telemetry is record-only: every branch below guards on the tracer
+        # and only ever appends to its lists, so decisions / RNG draws /
+        # metrics are bitwise identical with or without one attached.
+        tracer = self.tracer
+        if tracer is not None:
+            tracer.reset()  # rerun-determinism, like the RNG re-seed above
+        slo = self.scheduler.config.slo
 
         def ingest(upto: float) -> int:
             nonlocal next_arrival
@@ -166,10 +175,16 @@ class ServingSimulator:
             if shed:
                 n_shed = 0
                 for m, n in shed:
-                    n_shed += len(queues[m].pop_batch(n))
+                    popped = queues[m].pop_batch(n)
+                    n_shed += len(popped)
+                    if tracer is not None:
+                        for req in popped:
+                            tracer.record_drop(req, t, slo)
                 dropped += n_shed
                 if profiler is not None:
                     profiler.observe_dropped(n_shed)
+                if tracer is not None and n_shed:
+                    tracer.record_event(t, "shed", n=n_shed)
                 snapshot = QueueSnapshot.take(queues, t)
             decision = self.scheduler.decide(snapshot)
 
@@ -211,12 +226,25 @@ class ServingSimulator:
                         deadline=req.deadline,
                     )
                 )
+            if tracer is not None:
+                tracer.record_decision(
+                    t, decision, t_end,
+                    tuple(snapshot.qlens()),
+                    tuple(snapshot.w_max(m) for m in range(self.num_models)),
+                    margin=decision_margin(self.scheduler, snapshot),
+                )
+                for req in batch:
+                    tracer.record_completion(
+                        req, t, t_end, decision.exit_idx,
+                        decision.batch_size, slo)
             if profiler is not None:
                 refreshed = profiler.ingest_quantum(
                     decision.model, decision.exit_idx, decision.batch_size,
                     service, t_end, batch, self.scheduler.config.slo)
                 if refreshed is not None:
                     self.scheduler.table = refreshed
+                    if tracer is not None:
+                        tracer.record_refresh(t_end, profiler)
             if keep_traces:
                 traces.append(
                     ServingTrace(t, t_end, decision, tuple(snapshot.qlens()))
@@ -242,8 +270,22 @@ class ServingSimulator:
             model_map=self.model_map,
             dropped=dropped,
         )
+        trace = None
+        if tracer is not None:
+            # Never served (still queued at run end, or never ingested):
+            # device=-1 throughout — a residual was never assigned a
+            # quantum.
+            for q in queues:
+                for req in q.pending():
+                    tracer.record_residual(req, slo, device=-1)
+            for req in arrivals[next_arrival:]:
+                tracer.record_residual(req, slo, device=-1)
+            trace = tracer.freeze(
+                engine="python", num_models=self.num_models, num_devices=1,
+                slo=slo, horizon=horizon, span=span,
+                warmup_used=metrics.warmup_used, n_arrivals=n_arr)
         return SimResult(metrics, completions, traces, span,
-                         adapted_table=adapted)
+                         adapted_table=adapted, trace=trace)
 
 
 def run_experiment(
@@ -259,17 +301,16 @@ def run_experiment(
     process: Optional[object] = None,
     drift: Optional[DriftModel] = None,
     adapt: Optional[AdaptConfig] = None,
-    tracer: None = None,
+    tracer: Optional[Tracer] = None,
 ) -> SimResult:
     """One full serving experiment: arrivals -> simulate -> metrics.
 
     ``process`` is an optional ``repro_torch.core.workloads.ArrivalProcess``;
     the default is the paper's stationary Poisson traffic at ``rates``.
-    ``drift`` / ``adapt`` thread straight into :class:`ServingSimulator`
-    (device drift on true service times / online profile adaptation);
-    ``tracer`` must be None.
+    ``drift`` / ``adapt`` / ``tracer`` thread straight into
+    :class:`ServingSimulator` (device drift on true service times / online
+    profile adaptation / record-only telemetry).
     """
-    _no_tracer(tracer)
     if process is not None:
         arrivals = process.generate(horizon, seed=seed)
     else:
@@ -283,6 +324,7 @@ def run_experiment(
         seed=seed,
         drift=drift,
         adapt=adapt,
+        tracer=tracer,
     )
     return sim.run(arrivals, horizon, warmup_tasks=warmup_tasks,
                    keep_traces=keep_traces)

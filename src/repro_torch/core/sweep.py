@@ -18,9 +18,9 @@ guaranteeing that **parallel results are bitwise-identical to serial**:
 "bitwise-identical" is checked with plain ``==``.
 
 This is the port of the reference's ``src/repro/core/sweep.py`` on the
-single-device Python engine. Fleets (``fleet=``, ``cluster_grid``), the
-compiled scan engine (``engine="scan"``) and telemetry (``trace=True``) are
-not ported yet and raise ``NotImplementedError``.
+Python engines: single-device cells, fleet cells (``fleet=``,
+``cluster_grid``) and telemetry (``trace=True``). The compiled scan engine
+(``engine="scan"``) is not ported yet and raises ``NotImplementedError``.
 
 Typical use::
 
@@ -43,10 +43,16 @@ from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.adaptive import AdaptConfig, make_drift
 from repro_torch.core.baselines import make_scheduler
+from repro_torch.core.cluster import (
+    ClusterSimulator,
+    make_dispatcher,
+    make_fleet,
+)
 from repro_torch.core.metrics import ServingMetrics
 from repro_torch.core.profile import ProfileTable
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.core.simulator import ServingSimulator
+from repro_torch.core.telemetry import Trace, Tracer
 from repro_torch.core.traffic import paper_rate_vector
 from repro_torch.core.workloads import make_scenario
 
@@ -64,21 +70,32 @@ class SweepSpec:
     hashable) parameterises it. ``deadlines`` is an optional per-model SLO
     vector. ``backend`` selects the stability-score scoring engine
     (``repro_torch.core.scoring``: numpy / torch / cuda) for the cell's
-    Algorithm-1 scheduler, and ``device`` the device the ``torch`` and
-    ``cuda`` backends score on (None = the card, ``"cpu"`` = their plain
-    versions on the host).
+    Algorithm-1 scheduler(s) — cluster cells pass it to every per-device
+    scheduler — and ``device`` the device the ``torch`` and ``cuda``
+    backends score on (None = the card, ``"cpu"`` = their plain versions on
+    the host).
+
+    Cluster cells: setting ``fleet`` (a ``repro_torch.core.cluster.FLEETS``
+    name) switches the cell from the single-device simulator to a
+    :class:`ClusterSimulator` of ``fleet_size`` devices built from the
+    runner's table, routed by ``dispatcher``; ``fail_at`` is an optional
+    ``((device, time), ...)`` failure schedule. All fields stay hashable /
+    picklable, so cluster grids fan across workers with the same
+    parallel ≡ serial bitwise guarantee.
 
     Drift / adaptation (``repro_torch.core.adaptive``): ``drift`` names a
-    ``DRIFTS`` model (or ``"none"``) applied to true service times, with
-    ``drift_kwargs`` as hashable (key, value) pairs; ``adapt`` is an
-    optional :class:`AdaptConfig` switching the cell's scheduler from the
-    static cold-start table to online-profiled refreshes. Both default to
-    off, which is bitwise the stock cell.
+    ``DRIFTS`` model (or ``"none"``) applied to true service times — every
+    device of a cluster cell gets its own instance, independently
+    re-seeded — with ``drift_kwargs`` as hashable (key, value) pairs;
+    ``adapt`` is an optional :class:`AdaptConfig` switching the cell's
+    scheduler(s) from the static cold-start table to online-profiled
+    refreshes. Both default to off, which is bitwise the stock cell.
 
-    The cluster fields (``fleet``, ``fleet_size``, ``dispatcher``,
-    ``power_d``, ``fail_at``), ``engine="scan"`` and ``trace`` keep the
-    reference's names and defaults; a cell that sets a cluster field,
-    the scan engine or a trace raises, since those tiers are not ported.
+    ``trace=True`` attaches a record-only telemetry ``Tracer``: decisions
+    and metrics stay bitwise those of the untraced cell, and the result
+    carries the frozen :class:`Trace`. ``engine`` keeps the reference's
+    name and values; ``"scan"`` (the compiled tier) is not ported and
+    raises.
     """
 
     policy: str
@@ -103,7 +120,9 @@ class SweepSpec:
     drift_kwargs: Tuple[Tuple[str, object], ...] = ()
     adapt: Optional[AdaptConfig] = None  # None = static scheduler table
     engine: str = "python"               # "python" | "scan" (not ported)
-    trace: bool = False                  # telemetry (not ported)
+    trace: bool = False                  # attach a telemetry Tracer
+                                         # (record-only; decisions/metrics
+                                         # stay bitwise-identical)
     device: Optional[str] = None         # scoring device; None = the card
 
     def rate_vector(self) -> List[float]:
@@ -134,7 +153,7 @@ class SweepResult:
     spec: SweepSpec
     metrics: ServingMetrics
     us_per_call: float  # wall microseconds spent on this cell (in its worker)
-    trace: None = None  # the telemetry timeline: not ported, always None
+    trace: Optional[Trace] = None  # telemetry timeline (spec.trace=True)
 
 
 def _run_cell(runner: "SweepRunner", spec: SweepSpec) -> SweepResult:
@@ -142,8 +161,8 @@ def _run_cell(runner: "SweepRunner", spec: SweepSpec) -> SweepResult:
     return runner.run_cell(spec)
 
 
-def _check_ported(spec: SweepSpec) -> None:
-    """Raise for every field that selects a tier the port lacks."""
+def _check_engine(spec: SweepSpec) -> None:
+    """Raise for the engine the port lacks, and for an unknown one."""
     if spec.engine == "scan":
         raise NotImplementedError(
             "SweepSpec.engine='scan' (the compiled tiers) is not ported to "
@@ -152,21 +171,6 @@ def _check_ported(spec: SweepSpec) -> None:
         raise ValueError(
             f"unknown SweepSpec.engine {spec.engine!r}; "
             f"expected 'python' or 'scan'"
-        )
-    if spec.trace:
-        raise NotImplementedError(
-            "SweepSpec.trace=True (telemetry) is not ported to repro_torch "
-            "yet")
-    if spec.fleet is not None:
-        raise NotImplementedError(
-            "SweepSpec.fleet (the cluster tier) is not ported to repro_torch "
-            "yet")
-    if (spec.fail_at or spec.fleet_size != 1
-            or spec.dispatcher != "least-loaded"):
-        raise ValueError(
-            "cluster-only SweepSpec fields (fail_at / fleet_size / "
-            "dispatcher) require fleet=<FLEETS name>; a single-device "
-            "cell would silently ignore them"
         )
 
 
@@ -214,32 +218,87 @@ class SweepRunner:
             for p, sc, r, s in itertools.product(policies, scenarios, rates, seeds)
         ]
 
-    def cluster_grid(self, *args, **kwargs) -> List[SweepSpec]:
-        """The reference's (dispatcher × fleet × ...) cluster product; the
-        cluster tier is not ported yet."""
-        raise NotImplementedError(
-            "SweepRunner.cluster_grid (the cluster tier) is not ported to "
-            "repro_torch yet")
+    def cluster_grid(
+        self,
+        dispatchers: Sequence[str],
+        fleets: Sequence[Tuple[str, int]],
+        scenarios: Sequence[str] = ("poisson",),
+        rates: Sequence[float] = (100.0,),
+        seeds: Sequence[int] = (7,),
+        policy: str = "edgeserving",
+        **common,
+    ) -> List[SweepSpec]:
+        """The (dispatcher × fleet × scenario × rate × seed) cluster product,
+        dispatcher-major; ``fleets`` are ``(FLEETS name, size)`` pairs.
+        Dispatchers sharing a (fleet, scenario, rate, seed) cell see
+        identical arrival traces — paired comparisons by construction.
+        """
+        return [
+            SweepSpec(policy=policy, dispatcher=dp, fleet=fl, fleet_size=fs,
+                      scenario=sc, rate=r, seed=s, **common)
+            for dp, (fl, fs), sc, r, s in itertools.product(
+                dispatchers, fleets, scenarios, rates, seeds)
+        ]
 
     # -- execution -----------------------------------------------------------
 
-    def simulator(self, spec: SweepSpec) -> ServingSimulator:
-        """The cell's simulator, with its scheduler, as :meth:`run_cell`
-        runs it (for callers that want the run's traces too)."""
-        _check_ported(spec)
+    def simulator(self, spec: SweepSpec):
+        """The cell's simulator as :meth:`run_cell` runs it: a
+        :class:`ServingSimulator` with its scheduler, or for a fleet cell a
+        :class:`ClusterSimulator` (for callers that want the run's traces or
+        per-device state too). ``spec.trace`` attaches a fresh tracer."""
+        _check_engine(spec)
+        rates = spec.rate_vector()
         cfg = SchedulerConfig(slo=spec.slo, max_batch=spec.max_batch,
                               backend=spec.backend, device=spec.device)
+        tracer = Tracer() if spec.trace else None
+        if spec.fleet is not None:
+            if self.sched_table is not None or self.model_map is not None:
+                raise NotImplementedError(
+                    "cluster cells build per-device schedulers from the "
+                    "fleet's own tables; a runner-level sched_table / "
+                    "model_map would be silently ignored — use a "
+                    "fleet-less spec or encode the view in the fleet's "
+                    "DeviceSpecs via ClusterSimulator directly"
+                )
+            # One drift instance per device (burst caches are per-instance);
+            # ClusterSimulator re-seeds each from (seed, device id).
+            fleet_drift = tuple(
+                (d, make_drift(spec.drift, **dict(spec.drift_kwargs)))
+                for d in range(spec.fleet_size)
+            ) if spec.drift not in (None, "none") else ()
+            return ClusterSimulator(
+                make_fleet(spec.fleet, spec.fleet_size, self.table,
+                           fail_at=spec.fail_at, drift=fleet_drift),
+                policy=spec.policy,
+                config=cfg,
+                dispatcher=make_dispatcher(spec.dispatcher, slo=spec.slo,
+                                           power_d=spec.power_d),
+                num_models=len(rates),
+                service_noise_cov=self.service_noise_cov,
+                seed=spec.seed,
+                adapt=spec.adapt,
+                tracer=tracer,
+            )
+        if (spec.fail_at or spec.fleet_size != 1
+                or spec.dispatcher != "least-loaded"):
+            raise ValueError(
+                "cluster-only SweepSpec fields (fail_at / fleet_size / "
+                "dispatcher) require fleet=<FLEETS name>; a single-device "
+                "cell would silently ignore them"
+            )
         sched = make_scheduler(spec.policy, self.sched_table or self.table,
                                cfg)
         return ServingSimulator(
             sched,
             self.table,
-            num_models=len(spec.rate_vector()),
+            num_models=len(rates),
             service_noise_cov=self.service_noise_cov,
             model_map=self.model_map,
             seed=spec.seed,
             drift=make_drift(spec.drift, **dict(spec.drift_kwargs)),
             adapt=spec.adapt,
+            tracer=tracer,
         )
 
     def arrivals(self, spec: SweepSpec):
@@ -259,7 +318,7 @@ class SweepRunner:
         res = sim.run(self.arrivals(spec), spec.horizon,
                       warmup_tasks=spec.warmup_tasks)
         us = (time.perf_counter() - t0) * 1e6
-        return SweepResult(spec, res.metrics, us)
+        return SweepResult(spec, res.metrics, us, trace=res.trace)
 
     def run(
         self, specs: Sequence[SweepSpec], workers: Optional[int] = 1

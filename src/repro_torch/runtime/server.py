@@ -24,11 +24,13 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.core.adaptive import OnlineProfiler
 from repro_torch.core.metrics import summarize
 from repro_torch.core.profile import ProfileTable
 from repro_torch.core.queues import QueueSnapshot, ServiceQueue
 from repro_torch.core.request import Completion, Request
 from repro_torch.core.scheduler import Scheduler
+from repro_torch.core.telemetry import Tracer, decision_margin
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.models.resnet import EarlyExitResNet, ResNetConfig
 from repro_torch.models.transformer import DecoderLM, LMConfig
@@ -170,7 +172,13 @@ class ServingEngine:
 
     The same snapshot -> prune -> decide -> occupy round as the reference's
     engine; each quantum runs the forward on the device and service time is
-    whatever the wall clock says.
+    whatever the wall clock says. ``profiler`` (optional) is a
+    ``repro_torch.core.adaptive.OnlineProfiler``: every quantum's measured
+    service time is folded into it and the scheduler's table is swapped for
+    its refreshed view on the profiler's cadence (and, unlike the
+    simulator, not restored when a run ends). ``tracer`` (optional) is a
+    record-only ``repro_torch.core.telemetry.Tracer``. With both ``None`` a
+    run is the stock run.
     """
 
     def __init__(
@@ -178,21 +186,30 @@ class ServingEngine:
         models: Sequence[ServedModel],
         scheduler: Scheduler,
         clock: Callable[[], float] = time.monotonic,
+        profiler: Optional[OnlineProfiler] = None,
+        tracer: Optional[Tracer] = None,
     ):
         self.models = list(models)
         self.scheduler = scheduler
         self.clock = clock
+        self.profiler = profiler
+        # Record-only telemetry: live runs emit the same decision/span/event
+        # vocabulary as the simulators, so one tools/tracestats.py
+        # invocation reads either. None = zero cost.
+        self.tracer = tracer
         self.queues = [ServiceQueue(m) for m in range(len(models))]
         self.completions: List[Completion] = []
         self.dropped = 0
         self._busy_s = 0.0
         self._unsubmitted = 0  # trace tail never ingested (drain-cap exit)
         # Engine counters, cumulative across run() calls like the completion
-        # log. stalls = idle rounds that slept.
+        # log; "engine-counters" trace events snapshot them at each run()
+        # exit. stalls = idle rounds that slept.
         self.counters: Dict[str, int] = {
             "batches_served": 0,
             "requests_served": 0,
             "stalls": 0,
+            "profiler_refreshes": 0,
             "dropped": 0,
             "drain_residual": 0,
         }
@@ -243,11 +260,17 @@ class ServingEngine:
         the cap stay queued and are surfaced via ``metrics().residual_queue``
         (never-ingested ones too), so completions + dropped + residual
         always equals the arrival count.
+
+        With a ``profiler`` attached, each quantum's measured wall-clock
+        service feeds ``OnlineProfiler.ingest_quantum`` and the scheduler's
+        table is refreshed in place on the profiler's cadence.
         """
         t0 = self.clock()
         next_arr = 0
         n = len(arrivals)
         self._unsubmitted = 0
+        tracer = self.tracer
+        slo = self.scheduler.config.slo
         while True:
             now = self.clock() - t0
             while next_arr < n and arrivals[next_arr].arrival <= now:
@@ -261,9 +284,17 @@ class ServingEngine:
                     break
             snapshot = QueueSnapshot.take(self.queues, now)
             for m, cnt in self.scheduler.prune(snapshot):
-                n_shed = len(self.queues[m].pop_batch(cnt))
+                popped = self.queues[m].pop_batch(cnt)
+                n_shed = len(popped)
                 self.dropped += n_shed
                 self.counters["dropped"] += n_shed
+                if tracer is not None:
+                    for req in popped:
+                        tracer.record_drop(req, now, slo)
+                    if n_shed:
+                        tracer.record_event(now, "shed", n=n_shed)
+                if self.profiler is not None:
+                    self.profiler.observe_dropped(n_shed)
             decision = self.scheduler.decide(snapshot)
             if decision is None:
                 self.counters["stalls"] += 1
@@ -277,6 +308,14 @@ class ServingEngine:
             self._busy_s += t_done - t_dispatch
             self.counters["batches_served"] += 1
             self.counters["requests_served"] += len(batch)
+            if tracer is not None:
+                tracer.record_decision(
+                    t_dispatch, decision, t_done,
+                    tuple(snapshot.qlens()),
+                    tuple(snapshot.w_max(m)
+                          for m in range(len(self.queues))),
+                    margin=decision_margin(self.scheduler, snapshot),
+                )
             for req in batch:
                 self.completions.append(Completion(
                     req_id=req.req_id, model=req.model, arrival=req.arrival,
@@ -285,9 +324,25 @@ class ServingEngine:
                     batch_size=decision.batch_size,
                     deadline=req.deadline,
                 ))
+                if tracer is not None:
+                    tracer.record_completion(
+                        req, t_dispatch, t_done, decision.exit_idx,
+                        decision.batch_size, slo)
+            if self.profiler is not None:
+                refreshed = self.profiler.ingest_quantum(
+                    decision.model, decision.exit_idx, decision.batch_size,
+                    t_done - t_dispatch, t_done, batch,
+                    self.scheduler.config.slo)
+                if refreshed is not None:
+                    self.scheduler.table = refreshed
+                    self.counters["profiler_refreshes"] += 1
+                    if tracer is not None:
+                        tracer.record_refresh(t_done, self.profiler)
         t_exit = self.clock() - t0
         self.counters["drain_residual"] = (
             sum(len(q) for q in self.queues) + self._unsubmitted)
+        if tracer is not None:
+            tracer.record_event(t_exit, "engine-counters", **self.counters)
         return self.completions, t_exit
 
     def metrics(self, table: ProfileTable, slo: float, span: float,
@@ -302,3 +357,19 @@ class ServingEngine:
                             + self._unsubmitted),
             dropped=self.dropped,
         )
+
+    def trace(self, **meta):
+        """Freeze the attached tracer's timeline as a ``telemetry.Trace``
+        (``None`` when no tracer is attached). Unlike the simulators the
+        engine is long-lived, so the caller decides when to snapshot;
+        residual-span accounting covers whatever is still queued now."""
+        if self.tracer is None:
+            return None
+        slo = self.scheduler.config.slo
+        for q in self.queues:
+            for req in q.pending():
+                self.tracer.record_residual(req, slo, device=-1)
+        base = dict(engine="live", num_models=len(self.models),
+                    num_devices=1, slo=slo)
+        base.update(meta)
+        return self.tracer.freeze(**base)

@@ -4,8 +4,8 @@
 quote: the four fig12 mean-violation summaries (greedy vs lattice at 30 ms
 and 50 ms SLO on the batch-saturating table) and the full ``ServingMetrics``
 row of the fig4 lambda=140 cell. This file recomputes them with
-``repro_torch`` only, at the reference's rtol=1e-9. The fig14 rows need the
-cluster tier, which is not ported yet.
+``repro_torch`` only, at the reference's rtol=1e-9. The four fig14 cluster
+rows are held the same way in ``tests/test_torch_cluster.py``.
 """
 
 import dataclasses

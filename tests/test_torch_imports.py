@@ -40,10 +40,13 @@ def test_port_package_is_present():
                    "models/common.py", "models/resnet.py",
                    "configs/edgeserving_resnets.py", "runtime/server.py",
                    "models/convert.py", "core/simulator.py", "core/sweep.py",
-                   "core/adaptive.py", "launch/serve.py"):
+                   "core/adaptive.py", "launch/serve.py",
+                   "core/telemetry.py", "core/cluster.py",
+                   "runtime/router.py", "runtime/fault_tolerance.py"):
         assert module in names, module
     assert (ROOT / "src" / "repro_torch" / "csrc" / "stability_score.cu").exists()
-    assert [p.name for p in EXAMPLES] == ["quickstart.py"]
+    assert [p.name for p in EXAMPLES] == ["quickstart.py",
+                                          "serve_multi_model.py"]
 
 
 @pytest.mark.parametrize(

@@ -135,13 +135,23 @@ def test_a_rerun_is_bitwise_the_first_run(kwargs):
 
 
 def test_a_tracer_is_not_ported_and_raises():
+    """The name is kept from before the tracer was ported, when it raised.
+    It now holds that the simulator and ``run_experiment`` take a
+    ``Tracer`` and return its frozen trace, with metrics bitwise those of
+    the untraced run, and no trace without one (the port's telemetry is
+    held against the reference in ``tests/test_torch_telemetry.py``)."""
     table = ProfileTable.paper_rtx3080()
     sched = make_scheduler("edgeserving", table, SchedulerConfig())
-    with pytest.raises(NotImplementedError):
-        ServingSimulator(sched, table, tracer=object())
-    with pytest.raises(NotImplementedError):
-        run_experiment(sched, table, RATES, horizon=0.1, tracer=object())
-    assert run_experiment(sched, table, RATES, horizon=0.5).trace is None
+    traced = ServingSimulator(sched, table, tracer=P.Tracer()).run(
+        poisson_arrivals(RATES, 0.5, seed=0), 0.5)
+    plain = run_experiment(sched, table, RATES, horizon=0.5)
+    assert plain.trace is None
+    assert traced.trace.meta["engine"] == "python"
+    assert len(traced.trace.spans) == traced.trace.meta["n_arrivals"]
+    assert _plain(traced.metrics) == _plain(plain.metrics)
+    assert _plain(run_experiment(sched, table, RATES, horizon=0.5,
+                                 tracer=P.Tracer()).metrics) == _plain(
+        plain.metrics)
 
 
 # ---------------------------------------------------------------------------

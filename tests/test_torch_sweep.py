@@ -128,22 +128,37 @@ def test_two_workers_equal_serial_bitwise_in_grid_order():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(fleet="homogeneous"),
+    dict(engine="scan", fleet="homogeneous"),
     dict(engine="scan"),
-    dict(trace=True),
+    dict(engine="scan", trace=True),
 ])
 def test_tiers_not_ported_raise(kwargs):
+    """The compiled scan tier is the one tier not ported: it raises for a
+    single-device cell, a fleet cell and a traced cell alike."""
     runner = SweepRunner(ProfileTable.paper_rtx3080())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="scan"):
         runner.run_cell(SweepSpec(policy="edgeserving", **kwargs, **SMALL))
 
 
 def test_cluster_grid_and_bad_fields_raise():
+    """``cluster_grid`` builds the reference's grid; the reference's
+    errors for contradictory specs stay: cluster-only fields on a
+    single-device cell, an unknown engine, and a runner-level view on a
+    fleet cell."""
     runner = SweepRunner(ProfileTable.paper_rtx3080())
-    with pytest.raises(NotImplementedError):
-        runner.cluster_grid(("least-loaded",), (("homogeneous", 2),))
+    grid = runner.cluster_grid(("least-loaded", "jsq"),
+                               (("homogeneous", 2), ("heterogeneous", 4)),
+                               rates=(100.0, 200.0))
+    ref = R.SweepRunner(R.ProfileTable.paper_rtx3080()).cluster_grid(
+        ("least-loaded", "jsq"), (("homogeneous", 2), ("heterogeneous", 4)),
+        rates=(100.0, 200.0))
+    assert [_ref_spec(s) for s in grid] == ref
     for kwargs in (dict(fleet_size=2), dict(fail_at=((0, 1.0),)),
                    dict(dispatcher="round-robin"), dict(engine="jit")):
         with pytest.raises(ValueError):
             runner.run_cell(SweepSpec(policy="edgeserving", **kwargs,
                                       **SMALL))
+    viewed = SweepRunner(ProfileTable.paper_rtx3080(), model_map=(0, 1, 2))
+    with pytest.raises(NotImplementedError, match="per-device schedulers"):
+        viewed.run_cell(SweepSpec(policy="edgeserving", fleet="homogeneous",
+                                  fleet_size=2, **SMALL))
