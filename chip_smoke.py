@@ -57,6 +57,19 @@ early-exit LMs (served quanta and KV-cache decode):
    span per arrival, numpy's metrics, and launches = scoring rounds + the
    traced rounds ``decision_margin`` scores again; per-device round means
    and wall times;
+   then the compiled scan tiers (``scan``: ``core/simfast.py``,
+   ``clusterfast.py``, ``seedband.py``; lanes of one float64 step, each
+   chunk of steps a replayed CUDA graph; no repo kernel): the fig4 golden
+   cell through ``SweepSpec(engine="scan")`` (goldens at rtol 1e-9, and
+   the Python engine's metrics bitwise), fig17's smoke cells on the card
+   against the same calls on the CPU (in two spawned workers meanwhile),
+   the first chunk of two step objects built from one plan (golden and
+   fleet shapes) replayed against the same blocks run eagerly (bitwise),
+   fig17's grid cell at 1000 seeds and its het fleet cell at 64 seeds per
+   dispatcher, timed alone on the host (wall time per seed and its host
+   split beside the Python engine's, 2 lanes each decided as the Python
+   engine does, with their exact and float64 near-ties, and the fleet's
+   ``compare_bands`` gap);
 8. the LMs on the card against the CPU in float32: SmolLM-135M at full
    width and depth at every exit, Phi-4-mini and Qwen3-8B at full width cut
    to 2 layers and one exit;
@@ -95,8 +108,10 @@ of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
+import multiprocessing
 import subprocess
 import sys
 import tempfile
@@ -957,6 +972,438 @@ def phase_fleet(device):
           f"{want} (scoring rounds {f32['scored']} + re-scored {rescored})")
     emit("fleet_phase", seconds=time.perf_counter() - t_phase)
     return total_launches + f32["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 7b: the compiled scan tiers (simfast, clusterfast, seedband)
+# ---------------------------------------------------------------------------
+
+# benchmarks/fig17_seedband.py: the grid cell (fig4's lambda = 140 at 10 s,
+# 1000 seeds in chunks of 100) and the fig14 heterogeneous fleet cell (MMPP
+# lambda_152 = 640 over 6 s, 4 devices, ring width 128); its smoke cells
+# (REPRO_FIG17_SMOKE) are the card-against-CPU check
+SCAN_GRID = dict(lam=140.0, horizon=10.0, seeds=1000, chunk=100)
+SCAN_FLEET = dict(lam=640.0, horizon=6.0, seeds=64, chunk=64, size=4,
+                  max_queue=128)
+SCAN_SMOKE_GRID = dict(lams=(100.0, 220.0), horizon=2.0, seeds=8, chunk=4)
+SCAN_SMOKE_FLEET = dict(horizon=1.5, seeds=6, chunk=3)
+SCAN_DISPATCHERS = ("stability-aware", "jsq")
+SCAN_PY_SAMPLE = 2        # lanes held against the Python engine per cell
+NEAR_TIE_RTOL = 1e-12     # runner-up margin <= this times |winner's score|
+
+
+def _blocks_vs_eager(plan, make, max_queue=None):
+    """Two step objects from one plan: one runs each block of the first
+    chunk op by op, the other replays it as its captured graph (on the
+    card). Returns (blocks, mismatches): outputs and carry must agree
+    bitwise."""
+    import torch
+
+    key = plan.key(plan.first_window(max_queue))
+    eager, graphed = make(key), make(key)
+    plan.load(eager)
+    plan.load(graphed)
+    blocks = key.chunk_steps // graphed.graph_steps
+    mismatches = 0
+    for _ in range(blocks):
+        want = eager.eager()
+        got = graphed.advance()
+        mismatches += not (
+            all(torch.equal(g, w) for g, w in zip(got, want))
+            and all(torch.equal(g, w)
+                    for g, w in zip(graphed.carry, eager.carry)))
+    check(graphed.device.type != "cuda" or graphed.graph is not None,
+          "scan: no graph was captured")
+    return blocks, mismatches
+
+
+def _scan_decisions(res):
+    return [(t.t_start, t.decision.model, t.decision.exit_idx,
+             t.decision.batch_size) for t in res.traces]
+
+
+def _ties(decisions):
+    """(exact ties, float64 near-ties) among decision records: runner-up
+    margin 0, and 0 < margin <= NEAR_TIE_RTOL * |winner's score|."""
+    exact = sum(1 for d in decisions if d.margin == 0.0)
+    near = sum(1 for d in decisions
+               if 0.0 < d.margin <= NEAR_TIE_RTOL * abs(d.score))
+    return exact, near
+
+
+def _scan_vs_python(sched_fn, table, lanes, horizon, device):
+    """Lanes through the scan on ``device`` (traced) and through the port's
+    ServingSimulator: decisions and metrics must agree. Returns the Python
+    engine's per-lane seconds and the (exact, near) ties of each lane."""
+    from repro_torch.core import ServingSimulator, Tracer, simulate_scan_batch
+
+    tracers = [Tracer() for _ in lanes]
+    scan = simulate_scan_batch(sched_fn(), table, lanes, horizon,
+                               keep_traces=True, tracers=tracers,
+                               device=device)
+    py_s, ties = [], []
+    for lane, res, tr in zip(lanes, scan, tracers):
+        t0 = time.perf_counter()
+        py = ServingSimulator(sched_fn(), table, num_models=3).run(
+            lane, horizon, keep_traces=True)
+        py_s.append(time.perf_counter() - t0)
+        check(_scan_decisions(res) == _scan_decisions(py),
+              "scan: decisions differ from the Python engine")
+        check(res.metrics == py.metrics,
+              "scan: metrics differ from the Python engine")
+        ties.append(_ties(res.trace.decisions))
+    return scan, py_s, ties
+
+
+def _fleet_python(dispatcher, fleet, lane, tracer=None):
+    """One lane of fig17's fleet cell through the port's
+    ``ClusterSimulator``."""
+    from repro_torch.core import (
+        ClusterSimulator,
+        ProfileTable,
+        SchedulerConfig,
+        make_dispatcher,
+        make_fleet,
+    )
+
+    size = fleet["size"]
+    return ClusterSimulator(
+        make_fleet("heterogeneous", size, ProfileTable.paper_rtx3080()),
+        config=SchedulerConfig(slo=SLO),
+        dispatcher=make_dispatcher(dispatcher, slo=SLO, power_d=size),
+        tracer=tracer).run(lane, fleet["horizon"])
+
+
+def _fleet_lanes(fleet, seeds):
+    from repro_torch.core import make_scenario, paper_rate_vector
+
+    proc = make_scenario("mmpp", paper_rate_vector(fleet["lam"]))
+    return [proc.generate(fleet["horizon"], seed=s) for s in seeds]
+
+
+def smoke_cells(smoke_grid):
+    """fig17's smoke cells as (kind, policy or dispatcher, lambda): the
+    grid at each lambda under edgeserving and, at lambda <= 140,
+    allfinal-deadline-aware; the het MMPP fleet under each dispatcher."""
+    grid = [("grid", policy, lam) for lam in smoke_grid["lams"]
+            for policy in ("edgeserving", "allfinal-deadline-aware")[
+                :2 if lam <= 140.0 else 1]]
+    return grid + [("fleet", disp, None) for disp in SCAN_DISPATCHERS]
+
+
+def smoke_name(cell):
+    kind, who, lam = cell
+    return f"{kind}/{who}" + ("" if lam is None else f"/lam{lam:g}")
+
+
+def smoke_cell(device, cell, smoke_grid, smoke_fleet, fleet):
+    """One smoke cell on ``device``: its per-seed ``ServingMetrics``."""
+    from repro_torch.core import (
+        ProfileTable,
+        SchedulerConfig,
+        make_fleet,
+        make_scenario,
+        make_scheduler,
+        paper_rate_vector,
+        simulate_cluster_scan_seedband,
+        simulate_scan_seedband,
+    )
+
+    table, cfg = ProfileTable.paper_rtx3080(), SchedulerConfig(slo=SLO)
+    kind, who, lam = cell
+    if kind == "grid":
+        proc = make_scenario("poisson", paper_rate_vector(lam))
+        return simulate_scan_seedband(
+            make_scheduler(who, table, cfg), table, proc,
+            smoke_grid["horizon"], range(smoke_grid["seeds"]),
+            chunk=smoke_grid["chunk"], device=device).metrics
+    proc = make_scenario("mmpp", paper_rate_vector(fleet["lam"]))
+    seeds = sorted(range(smoke_fleet["seeds"]), key=lambda s: len(
+        proc.generate_columns(smoke_fleet["horizon"], seed=s)))
+    return simulate_cluster_scan_seedband(
+        make_fleet("heterogeneous", fleet["size"], table), proc,
+        smoke_fleet["horizon"], seeds, chunk=smoke_fleet["chunk"],
+        dispatcher=who, power_d=fleet["size"], config=cfg,
+        max_queue=fleet["max_queue"], device=device).metrics
+
+
+def fleet_ties(dispatcher, fleet, seeds):
+    """The (exact, near) ties of the fleet cell's ``seeds`` from a traced
+    ``ClusterSimulator`` run (the cluster scan emits no margins; tracing
+    changes no decision)."""
+    from repro_torch.core import Tracer
+
+    return [_ties(_fleet_python(dispatcher, fleet, lane, Tracer())
+                  .trace.decisions) for lane in _fleet_lanes(fleet, seeds)]
+
+
+def _one_thread():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def phase_scan(device, grid=SCAN_GRID, fleet=SCAN_FLEET,
+               smoke_grid=SCAN_SMOKE_GRID, smoke_fleet=SCAN_SMOKE_FLEET):
+    """The compiled scan tiers on ``device`` (lanes of one float64 step,
+    each chunk a replayed CUDA graph on the card):
+
+    (a) the fig4 lambda=140 golden cell as ``SweepSpec(engine="scan")``:
+        the goldens at rtol 1e-9 (``per_model`` included) and bitwise the
+        Python engine's cell (numpy scoring);
+    (b) fig17's smoke cells, seed columns on the card == the same calls on
+        the CPU;
+    (c) graph replay against the eager step: two step objects from one
+        plan, at the golden cell's shape and the fleet cell's (each
+        dispatcher), every block of the first chunk, outputs and carry
+        bitwise;
+    (d) fig17's grid cell, 1000 seeds: scan wall time per seed and its host
+        split, beside the Python engine's for 2 seeds, whose lanes must
+        decide as it does;
+    (e) fig17's fleet cell, 64 seeds per dispatcher: the same, the
+        ``compare_bands`` gap, and 2 lanes against ``ClusterSimulator``.
+    Two spawned workers, one thread each, run the CPU half of (b) and the
+    fleet lanes' traced Python runs (for their ties) while the card runs
+    (a)-(c), so (a)'s and (b)'s wall times share the host with them; they
+    are joined before (d), and nothing else runs while (d) and (e) are
+    timed. Every lane compared with the Python engine prints its exact and
+    float64 near-ties; any decision mismatch fails the phase. Launches no
+    repo kernel."""
+    from repro_torch.core import make_scenario, paper_rate_vector
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    # fig17 groups the fleet's seeds by arrival count (a chunk pads to its
+    # longest lane); the median lanes go to the Python engine
+    proc = make_scenario("mmpp", paper_rate_vector(fleet["lam"]))
+    lens = {s: len(proc.generate_columns(fleet["horizon"], seed=s))
+            for s in range(fleet["seeds"])}
+    seeds = sorted(lens, key=lens.get)
+    mid = seeds[len(seeds) // 2:len(seeds) // 2 + SCAN_PY_SAMPLE]
+    cells = smoke_cells(smoke_grid)
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=2, initializer=_one_thread,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        ties = {disp: pool.submit(fleet_ties, disp, fleet, mid)
+                for disp in SCAN_DISPATCHERS}
+        on_cpu = {cell: pool.submit(smoke_cell, "cpu", cell, smoke_grid,
+                                    smoke_fleet, fleet) for cell in cells}
+        smoke = _scan_card_checks(device, fleet, smoke_grid, smoke_fleet,
+                                  seeds, cells)
+        t_sub = time.perf_counter()
+        cpu = {cell: f.result() for cell, f in on_cpu.items()}
+        ties = {disp: f.result() for disp, f in ties.items()}
+        wait_s = time.perf_counter() - t_sub
+    for cell in cells:
+        check(smoke[cell] == cpu[cell],
+              f"scan smoke {smoke_name(cell)}: card != CPU")
+    emit("scan_smoke", cells={smoke_name(c): len(smoke[c]) for c in cells},
+         card_equals_cpu=True, cpu_wait_s=wait_s)
+    _scan_timed(device, grid, fleet, seeds, mid, lens[mid[0]], ties)
+    launched = {k: v for k, v in launch_counts.items() if v}
+    check(not launched, f"scan: repo kernels launched {launched}")
+    emit("scan_phase", seconds=time.perf_counter() - t_phase)
+
+
+def _scan_card_checks(device, fleet, smoke_grid, smoke_fleet, seeds,
+                      cells):
+    """(a), the card half of (b), and (c); returns (b)'s columns."""
+    from repro_torch.core import (
+        ProfileTable,
+        SchedulerConfig,
+        SweepRunner,
+        SweepSpec,
+        make_fleet,
+        make_scenario,
+        make_scheduler,
+        paper_rate_vector,
+    )
+    from repro_torch.core.clusterfast import _ClusterSteps, _plan_cluster
+    from repro_torch.core.simfast import _plan_scan, _ScanSteps
+    from repro_torch.device import resolve_device
+
+    table = ProfileTable.paper_rtx3080()
+    cfg = SchedulerConfig(slo=SLO)
+
+    def sched_fn(policy="edgeserving"):
+        return lambda: make_scheduler(policy, table, cfg)
+
+    # (a) the golden cell through the scan sweep cell
+    t_sub = time.perf_counter()
+    runner = SweepRunner(table)
+    fields = dict(policy="edgeserving", rate=140.0, seed=7, horizon=10.0)
+    scan_cell = runner.run_cell(SweepSpec(**fields, engine="scan",
+                                          device=device))
+    py_cell = runner.run_cell(SweepSpec(**fields))
+    held = golden_fields("fig4_lam140", scan_cell.metrics)
+    for field, got, want in held:
+        check(bool(np.isclose(got, want, rtol=GOLDEN_RTOL, atol=0.0)),
+              f"scan fig4: golden {field} {got!r} != {want!r}")
+    check(scan_cell.metrics == py_cell.metrics,
+          "scan fig4: metrics differ from the Python engine's cell")
+    golden_lane = runner.arrivals(SweepSpec(**fields))
+    _, _, ties_a = _scan_vs_python(sched_fn(), table, [golden_lane], 10.0,
+                                   device)
+    emit("scan_golden", cell="fig4_lam140", golden_fields_held=len(held),
+         equal_to_python_cell=True, ties=ties_a[0],
+         wall_s_beside_cpu_workers={"scan": scan_cell.us_per_call / 1e6,
+                                   "python": py_cell.us_per_call / 1e6},
+         violation_ratio=scan_cell.metrics.violation_ratio,
+         seconds=time.perf_counter() - t_sub)
+
+    # (b) fig17's smoke cells on the card; the workers run the same calls
+    # on the CPU
+    t_sub = time.perf_counter()
+    smoke = {cell: smoke_cell(device, cell, smoke_grid, smoke_fleet, fleet)
+             for cell in cells}
+    smoke_s = time.perf_counter() - t_sub
+
+    # (c) graph replay against the eager step, from plans at the golden
+    # cell's and the fleet cell's shapes
+    dev = resolve_device(device)
+    plan = _plan_scan(sched_fn()(), table, [golden_lane], 10.0, None, None,
+                      600.0, None, emit_aux=True)
+    checked = {"scan/fig4_lam140": _blocks_vs_eager(
+        plan, lambda key: _ScanSteps(key, 1, dev))}
+    proc = make_scenario("mmpp", paper_rate_vector(fleet["lam"]))
+    lanes = [proc.generate_columns(fleet["horizon"], seed=s)
+             for s in seeds[:fleet["chunk"]]]
+    for disp in SCAN_DISPATCHERS:
+        plan = _plan_cluster(
+            make_fleet("heterogeneous", fleet["size"], table), lanes,
+            fleet["horizon"], "edgeserving", cfg, disp, fleet["size"], None,
+            600.0, None, 0.0, None)
+        checked[f"cluster/{disp}"] = _blocks_vs_eager(
+            plan, lambda key: _ClusterSteps(key, len(lanes), dev),
+            fleet["max_queue"])
+    bad = {n: m for n, (_, m) in checked.items() if m}
+    check(not bad, f"scan: graph blocks differ from the eager step {bad}")
+    emit("scan_blocks", graph_blocks_checked={n: b for n, (b, _)
+                                              in checked.items()},
+         graph_mismatches=0, smoke_card_s_beside_cpu_workers=smoke_s,
+         seconds=time.perf_counter() - t_sub)
+    return smoke
+
+
+def _split(scan_s):
+    """The host split of the scan run just timed (seconds per part, and
+    the rest: band bookkeeping and step-object set-up)."""
+    from repro_torch.core.simfast import split_seconds
+
+    parts = dict(split_seconds)
+    return dict(parts, other=scan_s - sum(parts.values()))
+
+
+def _scan_timed(device, grid, fleet, seeds, mid, mid_arrivals, py_ties):
+    """(d) and (e), alone on the host. ``py_ties``: each dispatcher's
+    (exact, near) ties of the ``mid`` lanes (``fleet_ties``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import (
+        ProfileTable,
+        SchedulerConfig,
+        compare_bands,
+        make_fleet,
+        make_scenario,
+        make_scheduler,
+        paper_rate_vector,
+        simulate_cluster_scan_batch,
+        simulate_cluster_scan_seedband,
+        simulate_scan_seedband,
+    )
+    from repro_torch.core.clusterfast import _cluster_steps
+    from repro_torch.core.simfast import _scan_steps, split_seconds
+
+    table = ProfileTable.paper_rtx3080()
+    cfg = SchedulerConfig(slo=SLO)
+    sync = (lambda: torch.cuda.synchronize()) if torch.device(
+        device).type == "cuda" else (lambda: None)
+
+    # (d) fig17's grid cell at 1000 seeds
+    proc = make_scenario("poisson", paper_rate_vector(grid["lam"]))
+    _scan_steps.cache_clear()
+    split_seconds.clear()
+    sync()
+    t0 = time.perf_counter()
+    band = simulate_scan_seedband(
+        make_scheduler("edgeserving", table, cfg), table, proc,
+        grid["horizon"], range(grid["seeds"]), chunk=grid["chunk"],
+        device=device)
+    sync()
+    scan_s = time.perf_counter() - t0
+    split = _split(scan_s)
+    lanes = [proc.generate(grid["horizon"], seed=s)
+             for s in range(SCAN_PY_SAMPLE)]
+    scan_lanes, py_s, ties = _scan_vs_python(
+        lambda: make_scheduler("edgeserving", table, cfg), table, lanes,
+        grid["horizon"], device)
+    check([r.metrics for r in scan_lanes]
+          == list(band.metrics[:SCAN_PY_SAMPLE]),
+          "scan grid: the traced lanes differ from the band's")
+    v = band.band("violation_ratio")
+    emit("scan_grid", cell=f"edgeserving/lam{grid['lam']:g}",
+         seeds=grid["seeds"], chunk=grid["chunk"],
+         horizon_s=grid["horizon"],
+         scan_s=scan_s, scan_ms_per_seed=scan_s * 1e3 / grid["seeds"],
+         host_split_s=split,
+         python_ms_per_seed=[s * 1e3 for s in py_s],
+         speedup=float(np.mean(py_s)) / (scan_s / grid["seeds"]),
+         lanes_vs_python=SCAN_PY_SAMPLE, decision_mismatches=0,
+         ties=ties, violation_mean=v.mean, violation_ci=[v.ci_lo, v.ci_hi],
+         seconds=time.perf_counter() - t0)
+
+    # (e) fig17's fleet cell, 64 seeds per dispatcher
+    t_sub = time.perf_counter()
+    proc = make_scenario("mmpp", paper_rate_vector(fleet["lam"]))
+    py_lanes = _fleet_lanes(fleet, mid)
+    cols, rows = {}, {}
+    for disp in SCAN_DISPATCHERS:
+        _cluster_steps.cache_clear()
+        split_seconds.clear()
+        sync()
+        t0 = time.perf_counter()
+        band = simulate_cluster_scan_seedband(
+            make_fleet("heterogeneous", fleet["size"], table), proc,
+            fleet["horizon"], seeds, chunk=fleet["chunk"], dispatcher=disp,
+            power_d=fleet["size"], config=cfg, max_queue=fleet["max_queue"],
+            device=device)
+        sync()
+        scan_s = time.perf_counter() - t0
+        split = _split(scan_s)
+        cols[disp] = band.column("violation_ratio")
+        py_s, py = [], []
+        for lane in py_lanes:
+            t0 = time.perf_counter()
+            py.append(_fleet_python(disp, fleet, lane))
+            py_s.append(time.perf_counter() - t0)
+        scan = simulate_cluster_scan_batch(
+            make_fleet("heterogeneous", fleet["size"], table), py_lanes,
+            fleet["horizon"], config=cfg, dispatcher=disp,
+            power_d=fleet["size"], max_queue=fleet["max_queue"],
+            device=device)
+        for res, want in zip(scan, py):
+            check(res.completions == want.completions
+                  and res.metrics == want.metrics,
+                  f"fleet scan/{disp}: completions or metrics differ from "
+                  f"ClusterSimulator")
+        v = band.band("violation_ratio")
+        rows[disp] = dict(
+            scan_s=scan_s, scan_ms_per_seed=scan_s * 1e3 / fleet["seeds"],
+            host_split_s=split,
+            python_ms_per_seed=[s * 1e3 for s in py_s],
+            speedup=float(np.mean(py_s)) / (scan_s / fleet["seeds"]),
+            ties=py_ties[disp], violation_mean=v.mean,
+            violation_ci=[v.ci_lo, v.ci_hi])
+    gap = compare_bands(cols["jsq"], cols["stability-aware"])
+    emit("scan_fleet", cell=f"heterogeneous-x{fleet['size']}/mmpp/"
+         f"lam{fleet['lam']:g}", seeds=fleet["seeds"],
+         horizon_s=fleet["horizon"], arrivals_median=mid_arrivals,
+         dispatchers=rows, lanes_vs_python=len(mid), decision_mismatches=0,
+         gap_jsq_minus_stability_aware=dataclasses.asdict(gap),
+         seconds=time.perf_counter() - t_sub)
 
 
 # ---------------------------------------------------------------------------
@@ -2158,6 +2605,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sim_launches = phase_sim("cuda")
     fleet_launches = phase_fleet("cuda")
+    phase_scan("cuda")
     phase_lm_models(lm_configs, "cuda")
     phase_lm_decode_models(lm_configs, "cuda")
     lm_launches, served = phase_lm_serving(lm_configs, "cuda")

@@ -6,9 +6,10 @@ metrics.
 
 Host bookkeeping stays numpy float64, op for op the reference's
 (``src/repro/core``); what the reference computes in jnp or Pallas runs here
-as float32 torch tensors or the CUDA kernel. The reference's compiled scan
-tiers (``simfast``, ``clusterfast``, ``seedband``) are not ported yet, so
-their names are not exported here.
+as float32 torch tensors or the CUDA kernel. The compiled scan tiers
+(``simfast``, ``clusterfast``) run one fixed-shape float64 step over many
+lanes, replayed as CUDA graphs on the card; ``seedband`` puts confidence
+bands on their per-seed columns.
 """
 
 from repro_torch.core.adaptive import (
@@ -41,11 +42,17 @@ from repro_torch.core.cluster import (
     make_dispatcher,
     make_fleet,
 )
+from repro_torch.core.clusterfast import (
+    SUPPORTED_DISPATCHERS,
+    simulate_cluster_scan,
+    simulate_cluster_scan_batch,
+)
 from repro_torch.core.metrics import (
     DeviceMetrics,
     ModelMetrics,
     ServingMetrics,
     summarize,
+    summarize_arrays,
 )
 from repro_torch.core.profile import ProfileTable
 from repro_torch.core.queues import QueueSnapshot, ServiceQueue
@@ -58,6 +65,20 @@ from repro_torch.core.scheduler import (
     VectorizedEdgeServingScheduler,
 )
 from repro_torch.core.scoring import SCORING_BACKENDS, make_scoring_backend
+from repro_torch.core.seedband import (
+    BandSummary,
+    GapSummary,
+    SeedBandResult,
+    compare_bands,
+    simulate_cluster_scan_seedband,
+    simulate_scan_seedband,
+    summarize_band,
+)
+from repro_torch.core.simfast import (
+    ScanEngineUnsupported,
+    simulate_scan,
+    simulate_scan_batch,
+)
 from repro_torch.core.simulator import ServingSimulator, SimResult, run_experiment
 from repro_torch.core.sweep import SweepResult, SweepRunner, SweepSpec
 from repro_torch.core.telemetry import (
@@ -82,33 +103,41 @@ from repro_torch.core.workloads import (
     FlashCrowdProcess,
     MMPPProcess,
     PoissonProcess,
+    TraceColumns,
     TraceReplayProcess,
     burstiness_index,
+    columns_from_requests,
     interarrival_cov,
     make_scenario,
     record_trace,
 )
 
 __all__ = [
-    "AdaptConfig", "ArrivalProcess", "ClusterResult", "ClusterSimulator",
-    "Completion", "ContentionDrift", "DISPATCHERS", "DRIFTS",
-    "DVFSStepDrift", "Decision", "DecisionRecord", "DeviceLoadView",
-    "DeviceMetrics", "DeviceSpec", "Dispatcher", "DiurnalProcess",
-    "DriftModel", "EVENT_KINDS", "EdgeServingScheduler", "FLEETS",
-    "FlashCrowdProcess", "JoinShortestQueueDispatcher",
-    "LatticeEdgeServingScheduler", "LeastLoadedDispatcher", "MMPPProcess",
-    "ModelMetrics", "OnlineProfiler", "PoissonProcess", "ProfileTable",
-    "QueueSnapshot", "Request", "RequestSpan", "RoundRobinDispatcher",
-    "SCENARIOS", "SCHEDULERS", "SCORING_BACKENDS", "SafetyController",
-    "Scheduler", "SchedulerConfig", "ServiceQueue", "ServingMetrics",
+    "AdaptConfig", "ArrivalProcess", "BandSummary", "ClusterResult",
+    "ClusterSimulator", "Completion", "ContentionDrift", "DISPATCHERS",
+    "DRIFTS", "DVFSStepDrift", "Decision", "DecisionRecord",
+    "DeviceLoadView", "DeviceMetrics", "DeviceSpec", "Dispatcher",
+    "DiurnalProcess", "DriftModel", "EVENT_KINDS", "EdgeServingScheduler",
+    "FLEETS", "FlashCrowdProcess", "GapSummary",
+    "JoinShortestQueueDispatcher", "LatticeEdgeServingScheduler",
+    "LeastLoadedDispatcher", "MMPPProcess", "ModelMetrics",
+    "OnlineProfiler", "PoissonProcess", "ProfileTable", "QueueSnapshot",
+    "Request", "RequestSpan", "RoundRobinDispatcher", "SCENARIOS",
+    "SCHEDULERS", "SCORING_BACKENDS", "SUPPORTED_DISPATCHERS",
+    "SafetyController", "ScanEngineUnsupported", "Scheduler",
+    "SchedulerConfig", "SeedBandResult", "ServiceQueue", "ServingMetrics",
     "ServingSimulator", "ServingTrace", "SimResult",
     "StabilityAwareDispatcher", "SweepResult", "SweepRunner", "SweepSpec",
-    "ThermalThrottleDrift", "TimelineMetrics", "Trace", "TraceEvent",
-    "TraceReplayProcess", "Tracer", "VectorizedEdgeServingScheduler",
-    "burstiness_index", "decision_margin", "drain_cell", "drain_estimate",
-    "export_chrome_trace", "export_ndjson", "interarrival_cov",
-    "load_ndjson", "make_dispatcher", "make_drift", "make_fleet",
-    "make_profiler", "make_scenario", "make_scheduler",
+    "ThermalThrottleDrift", "TimelineMetrics", "Trace", "TraceColumns",
+    "TraceEvent", "TraceReplayProcess", "Tracer",
+    "VectorizedEdgeServingScheduler", "burstiness_index",
+    "columns_from_requests", "compare_bands", "decision_margin",
+    "drain_cell", "drain_estimate", "export_chrome_trace", "export_ndjson",
+    "interarrival_cov", "load_ndjson", "make_dispatcher", "make_drift",
+    "make_fleet", "make_profiler", "make_scenario", "make_scheduler",
     "make_scoring_backend", "paper_rate_vector", "poisson_arrivals",
-    "record_trace", "run_experiment", "summarize", "timeline_metrics",
+    "record_trace", "run_experiment", "simulate_cluster_scan",
+    "simulate_cluster_scan_batch", "simulate_cluster_scan_seedband",
+    "simulate_scan", "simulate_scan_batch", "simulate_scan_seedband",
+    "summarize", "summarize_arrays", "summarize_band", "timeline_metrics",
 ]

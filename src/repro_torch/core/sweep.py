@@ -17,10 +17,11 @@ guaranteeing that **parallel results are bitwise-identical to serial**:
 ``ServingMetrics`` is a frozen dataclass of floats/ints/tuples, so
 "bitwise-identical" is checked with plain ``==``.
 
-This is the port of the reference's ``src/repro/core/sweep.py`` on the
-Python engines: single-device cells, fleet cells (``fleet=``,
-``cluster_grid``) and telemetry (``trace=True``). The compiled scan engine
-(``engine="scan"``) is not ported yet and raises ``NotImplementedError``.
+This is the port of the reference's ``src/repro/core/sweep.py``:
+single-device cells, fleet cells (``fleet=``, ``cluster_grid``), telemetry
+(``trace=True``) and the compiled scan engines (``engine="scan"``:
+``repro_torch.core.simfast`` / ``clusterfast``, their lanes on
+``SweepSpec.device``).
 
 Typical use::
 
@@ -48,9 +49,11 @@ from repro_torch.core.cluster import (
     make_dispatcher,
     make_fleet,
 )
+from repro_torch.core.clusterfast import simulate_cluster_scan
 from repro_torch.core.metrics import ServingMetrics
 from repro_torch.core.profile import ProfileTable
 from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.core.simfast import ScanEngineUnsupported, simulate_scan
 from repro_torch.core.simulator import ServingSimulator
 from repro_torch.core.telemetry import Trace, Tracer
 from repro_torch.core.traffic import paper_rate_vector
@@ -93,9 +96,10 @@ class SweepSpec:
 
     ``trace=True`` attaches a record-only telemetry ``Tracer``: decisions
     and metrics stay bitwise those of the untraced cell, and the result
-    carries the frozen :class:`Trace`. ``engine`` keeps the reference's
-    name and values; ``"scan"`` (the compiled tier) is not ported and
-    raises.
+    carries the frozen :class:`Trace`. ``engine="scan"`` runs the cell
+    through the compiled scan engines, which reject loudly
+    (``ScanEngineUnsupported``) what they cannot reproduce bitwise.
+    ``device`` is also where a scan cell's lanes run.
     """
 
     policy: str
@@ -119,11 +123,11 @@ class SweepSpec:
     drift: Optional[str] = None          # DRIFTS name; None/"none" = stock
     drift_kwargs: Tuple[Tuple[str, object], ...] = ()
     adapt: Optional[AdaptConfig] = None  # None = static scheduler table
-    engine: str = "python"               # "python" | "scan" (not ported)
+    engine: str = "python"               # "python" | "scan"
     trace: bool = False                  # attach a telemetry Tracer
                                          # (record-only; decisions/metrics
                                          # stay bitwise-identical)
-    device: Optional[str] = None         # scoring device; None = the card
+    device: Optional[str] = None         # scoring / scan device; None = the card
 
     def rate_vector(self) -> List[float]:
         if self.rates is not None:
@@ -162,12 +166,8 @@ def _run_cell(runner: "SweepRunner", spec: SweepSpec) -> SweepResult:
 
 
 def _check_engine(spec: SweepSpec) -> None:
-    """Raise for the engine the port lacks, and for an unknown one."""
-    if spec.engine == "scan":
-        raise NotImplementedError(
-            "SweepSpec.engine='scan' (the compiled tiers) is not ported to "
-            "repro_torch yet; run the cell with engine='python'")
-    if spec.engine != "python":
+    """Raise for an unknown engine."""
+    if spec.engine not in ("python", "scan"):
         raise ValueError(
             f"unknown SweepSpec.engine {spec.engine!r}; "
             f"expected 'python' or 'scan'"
@@ -246,8 +246,14 @@ class SweepRunner:
         """The cell's simulator as :meth:`run_cell` runs it: a
         :class:`ServingSimulator` with its scheduler, or for a fleet cell a
         :class:`ClusterSimulator` (for callers that want the run's traces or
-        per-device state too). ``spec.trace`` attaches a fresh tracer."""
+        per-device state too). ``spec.trace`` attaches a fresh tracer. A
+        scan cell has no simulator object: it runs through
+        :meth:`run_cell`."""
         _check_engine(spec)
+        if spec.engine == "scan":
+            raise ValueError(
+                "SweepSpec.engine='scan' cells run through run_cell; the "
+                "compiled engines have no simulator object")
         rates = spec.rate_vector()
         cfg = SchedulerConfig(slo=spec.slo, max_batch=spec.max_batch,
                               backend=spec.backend, device=spec.device)
@@ -314,9 +320,90 @@ class SweepRunner:
     def run_cell(self, spec: SweepSpec) -> SweepResult:
         """One serving experiment, fully determined by (runner, spec)."""
         t0 = time.perf_counter()
+        _check_engine(spec)
+        if spec.engine == "scan":
+            return self._run_cell_scan(spec, t0)
         sim = self.simulator(spec)
         res = sim.run(self.arrivals(spec), spec.horizon,
                       warmup_tasks=spec.warmup_tasks)
+        us = (time.perf_counter() - t0) * 1e6
+        return SweepResult(spec, res.metrics, us, trace=res.trace)
+
+    def _run_cell_scan(self, spec: SweepSpec, t0: float) -> SweepResult:
+        """``engine="scan"``: the cell through the compiled fast path
+        (``repro_torch.core.simfast`` for single-device cells,
+        ``repro_torch.core.clusterfast`` when ``spec.fleet`` is set), its
+        lanes on ``spec.device``. Decision-equivalent to the Python engine
+        for the supported configurations; everything the scan state layouts
+        cannot express is rejected loudly here (or by the engines' own
+        validation) rather than approximated."""
+        unsupported = []
+        if spec.drift not in (None, "none"):
+            unsupported.append(f"device drift ({spec.drift})")
+        if spec.adapt is not None:
+            unsupported.append("online profile adaptation")
+        if self.service_noise_cov > 0:
+            unsupported.append("service-time noise")
+        if spec.scenario == "trace-replay":
+            unsupported.append("trace replay")
+        if spec.backend != "numpy":
+            unsupported.append(f"the {spec.backend!r} scoring backend")
+        if unsupported:
+            raise ScanEngineUnsupported(
+                f"SweepSpec.engine='scan' does not support "
+                f"{', '.join(unsupported)}; run this cell with the "
+                f"Python engine (engine='python')"
+            )
+        rates = spec.rate_vector()
+        cfg = SchedulerConfig(slo=spec.slo, max_batch=spec.max_batch,
+                              backend=spec.backend)
+        arrivals = self.arrivals(spec)
+        if spec.fleet is not None:
+            if self.sched_table is not None or self.model_map is not None:
+                raise NotImplementedError(
+                    "cluster cells build per-device schedulers from the "
+                    "fleet's own tables; a runner-level sched_table / "
+                    "model_map would be silently ignored — use a "
+                    "fleet-less spec or encode the view in the fleet's "
+                    "DeviceSpecs via ClusterSimulator directly"
+                )
+            res = simulate_cluster_scan(
+                make_fleet(spec.fleet, spec.fleet_size, self.table,
+                           fail_at=spec.fail_at),
+                arrivals,
+                spec.horizon,
+                policy=spec.policy,
+                config=cfg,
+                dispatcher=spec.dispatcher,
+                power_d=spec.power_d,
+                num_models=len(rates),
+                warmup_tasks=spec.warmup_tasks,
+                seed=spec.seed,
+                tracer=Tracer() if spec.trace else None,
+                device=spec.device,
+            )
+            us = (time.perf_counter() - t0) * 1e6
+            return SweepResult(spec, res.metrics, us, trace=res.trace)
+        if (spec.fail_at or spec.fleet_size != 1
+                or spec.dispatcher != "least-loaded"):
+            raise ValueError(
+                "cluster-only SweepSpec fields (fail_at / fleet_size / "
+                "dispatcher) require fleet=<FLEETS name>; a single-device "
+                "cell would silently ignore them"
+            )
+        sched = make_scheduler(spec.policy, self.sched_table or self.table,
+                               cfg)
+        res = simulate_scan(
+            sched,
+            self.table,
+            arrivals,
+            spec.horizon,
+            num_models=len(rates),
+            warmup_tasks=spec.warmup_tasks,
+            model_map=self.model_map,
+            tracer=Tracer() if spec.trace else None,
+            device=spec.device,
+        )
         us = (time.perf_counter() - t0) * 1e6
         return SweepResult(spec, res.metrics, us, trace=res.trace)
 

@@ -16,9 +16,11 @@ queued tasks of all models:
     S = sum_m sum_{i in Q_m} f(w_{m,i})                            (Eq. 4)
 
 Two implementations: NumPy float64 (the host scheduler hot path, op for op
-the reference's) and float32 torch tensor functions (the twin of the
-reference's jnp path, and the plain version the CUDA kernel in
-``repro_torch.kernels.stability_score`` is checked against).
+the reference's) and torch tensor functions, the twin of the reference's
+jnp path. The torch functions compute in ``w``'s dtype, as the jnp ones do:
+float32 is the plain version the CUDA kernel in
+``repro_torch.kernels.stability_score`` is checked against, float64 the
+direct scoring mode of the compiled scan (``repro_torch.core.simfast``).
 """
 
 from __future__ import annotations
@@ -64,23 +66,24 @@ def stability_score_np(
 
 
 # ---------------------------------------------------------------------------
-# float32 torch path (the twin of the reference's jnp functions)
+# torch path (the twin of the reference's jnp functions)
 # ---------------------------------------------------------------------------
 
-def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    """A scalar or tensor as float32 on ``like``'s device. A scalar becomes
-    a 0-dim device tensor, so a division by it is a true division on every
-    device (a Python scalar divisor may become a reciprocal multiply)."""
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+def _like(x, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or tensor in ``like``'s dtype on ``like``'s device. A scalar
+    becomes a 0-dim device tensor, so a division by it is a true division on
+    every device (a Python scalar divisor may become a reciprocal
+    multiply)."""
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
 
 
 def urgency(w: torch.Tensor, tau: TauLike,
             clip: float = DEFAULT_CLIP) -> torch.Tensor:
-    """Eq. 3 in float32 (exp(min(., ln C)) form: overflow-free for
+    """Eq. 3 in ``w``'s dtype (exp(min(., ln C)) form: overflow-free for
     arbitrarily late tasks)."""
-    clip_t = _f32(clip, w)
+    clip_t = _like(clip, w)
     return torch.minimum(
-        torch.exp(torch.minimum(w / _f32(tau, w) - 1.0, torch.log(clip_t))),
+        torch.exp(torch.minimum(w / _like(tau, w) - 1.0, torch.log(clip_t))),
         clip_t)
 
 
@@ -107,6 +110,10 @@ def lattice_stability_scores(
     (paper Sec. V-C "Queue Status Prediction"): served tasks are removed and
     every other task waits ``L_n`` longer.
 
+    Every argument but ``cand_queue`` may carry leading lane axes (the
+    compiled scan scores all its lanes in one call); the shapes below are
+    one lane's.
+
     Args:
       w:            ``[M, maxQ]`` FIFO-sorted (oldest first) wait matrix.
       mask:         ``[M, maxQ]`` validity mask.
@@ -114,29 +121,31 @@ def lattice_stability_scores(
       cand_batch:   ``[N]`` per-candidate batch size ``B_n`` (int).
       cand_queue:   ``[N]`` queue index each candidate serves.
       tau:          global SLO scalar, or an ``[M, maxQ]`` matrix of
-                    per-task deadlines aligned with ``w``.
+                    per-task deadlines aligned with ``w`` (``[M, 1]``
+                    broadcasts one deadline per queue).
     Returns:
-      ``[N]`` float32 stability score ``S_n``, computed as the total over
-      every task minus the served tasks' terms (the reference's order).
+      ``[N]`` stability score ``S_n`` in ``w``'s dtype, computed as the
+      total over every task minus the served tasks' terms (the reference's
+      order).
     """
-    max_q = w.shape[1]
-    n = cand_latency.shape[0]
-    pos = torch.arange(max_q, device=w.device)[None, :]     # [1, maxQ]
-    served = pos < cand_batch[:, None]                       # [N, maxQ]
-    tau_t = _f32(tau, w)
-    tau_b = tau_t[None, :, :] if tau_t.ndim == 2 else tau_t
-    clip_t = _f32(clip, w)
+    max_q = w.shape[-1]
+    n = cand_latency.shape[-1]
+    pos = torch.arange(max_q, device=w.device)               # [maxQ]
+    served = pos < cand_batch[..., None]                     # [N, maxQ]
+    tau_t = _like(tau, w)
+    tau_b = tau_t[..., None, :, :] if tau_t.ndim >= 2 else tau_t
+    clip_t = _like(clip, w)
 
     # f(w + L_n) for all tasks, per candidate: [N, M, maxQ]
-    shifted = w[None, :, :] + cand_latency[:, None, None]
+    shifted = w[..., None, :, :] + cand_latency[..., :, None, None]
     urg = torch.minimum(
         torch.exp(torch.minimum(shifted / tau_b - 1.0, torch.log(clip_t))),
         clip_t,
-    ) * mask[None, :, :]
+    ) * mask[..., None, :, :]
 
-    total = torch.sum(urg, dim=(1, 2))                       # [N]
-    own = urg[torch.arange(n, device=w.device), cand_queue.long(), :]
-    removed = torch.sum(own * served, dim=1)
+    total = torch.sum(urg, dim=(-2, -1))                     # [N]
+    own = urg[..., torch.arange(n, device=w.device), cand_queue.long(), :]
+    removed = torch.sum(own * served, dim=-1)
     return total - removed
 
 
@@ -152,7 +161,7 @@ def candidate_stability_scores(
     exactly one candidate per queue, candidate ``m`` serving queue ``m``.
     Candidates with empty queues still get a (meaningless) score; callers
     mask them."""
-    m_count = w.shape[0]
+    m_count = w.shape[-2]
     return lattice_stability_scores(
         w, mask, cand_latency, cand_batch,
         torch.arange(m_count, device=w.device), tau, clip)

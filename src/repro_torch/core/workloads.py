@@ -21,11 +21,14 @@ trace for a given seed is bitwise the reference's. Each emits
 :class:`~repro_torch.core.request.Request` records sorted by arrival time
 with monotone ``req_id``, and can stamp a per-queue SLO vector onto
 ``Request.deadline`` so heterogeneous deadlines flow end to end through
-snapshot urgency, Eq. 6 and violation accounting.
+snapshot urgency, Eq. 6 and violation accounting. ``generate_columns``
+gives the same trace as :class:`TraceColumns`, the compiled scan tiers'
+native format (``repro_torch.core.simfast`` / ``clusterfast``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -39,13 +42,83 @@ __all__ = [
     "MMPPProcess",
     "DiurnalProcess",
     "FlashCrowdProcess",
+    "TraceColumns",
     "TraceReplayProcess",
     "SCENARIOS",
+    "columns_from_requests",
     "make_scenario",
     "record_trace",
     "interarrival_cov",
     "burstiness_index",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Columnar traces (the scan engines' native format)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceColumns:
+    """One arrival trace as columnar arrays instead of ``Request`` objects.
+
+    The compiled scan engines flatten a ``Request`` lane straight back into
+    arrays, so for thousand-seed bands the per-request Python objects are
+    pure overhead. ``ArrivalProcess.generate_columns`` produces this form
+    directly; ``repro_torch.core.simfast`` / ``clusterfast`` accept it
+    wherever a ``Request`` lane is accepted, with bitwise-identical results
+    (``req_id`` is the row index, exactly ``generate()``'s numbering).
+    Indexing materialises single ``Request`` objects on demand, so
+    completion-keeping paths keep working.
+    """
+
+    arrival: np.ndarray             # [n] float64, sorted ascending
+    model: np.ndarray               # [n] int64 queue index
+    data_id: np.ndarray             # [n] int64
+    deadline: Optional[np.ndarray]  # [n] float64, NaN = no deadline; or None
+
+    def __len__(self) -> int:
+        return len(self.model)
+
+    def __getitem__(self, i: int) -> Request:
+        dl = None
+        if self.deadline is not None:
+            d = self.deadline[i]
+            dl = None if np.isnan(d) else float(d)
+        return Request(
+            req_id=int(i),
+            model=int(self.model[i]),
+            arrival=float(self.arrival[i]),
+            data_id=int(self.data_id[i]),
+            deadline=dl,
+        )
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def columns_from_requests(requests: Sequence[Request]) -> TraceColumns:
+    """Columnar view of an existing ``Request`` lane (shared fallback)."""
+    n = len(requests)
+    arrival = np.fromiter(
+        (r.arrival for r in requests), dtype=np.float64, count=n)
+    model = np.fromiter((r.model for r in requests), dtype=np.int64, count=n)
+    data = np.fromiter(
+        (r.data_id for r in requests), dtype=np.int64, count=n)
+    if all(r.deadline is None for r in requests):
+        deadline = None
+    else:
+        deadline = np.fromiter(
+            (np.nan if r.deadline is None else r.deadline for r in requests),
+            dtype=np.float64, count=n,
+        )
+    return TraceColumns(arrival=arrival, model=model, data_id=data,
+                        deadline=deadline)
+
+
+# ---------------------------------------------------------------------------
+# Interface
+# ---------------------------------------------------------------------------
 
 
 class ArrivalProcess:
@@ -87,6 +160,48 @@ class ArrivalProcess:
     ) -> List[Request]:
         """Arrivals in ``[0, horizon)``, time-sorted, ``req_id`` monotone."""
         raise NotImplementedError
+
+    def generate_columns(
+        self, horizon: float, seed: int = 0, data_pool: int = 10_000
+    ) -> TraceColumns:
+        """The same trace as :meth:`generate`, as :class:`TraceColumns`.
+
+        Bitwise-identical to columnising ``generate()``'s output — same
+        RNG draws, same sort order — but skips ``Request``
+        materialisation and the Python tuple sort. Processes that build
+        their trace some other way than ``_event_tuples`` fall back
+        through ``generate()``.
+        """
+        events = self._event_tuples(horizon, seed, data_pool)
+        if events is None:
+            return columns_from_requests(
+                self.generate(horizon, seed=seed, data_pool=data_pool))
+        return self._finalize_columns(events)
+
+    # -- shared assembly ----------------------------------------------------
+
+    def _event_tuples(
+        self, horizon: float, seed: int, data_pool: int
+    ) -> Optional[List[tuple]]:
+        """Unsorted ``[(t, m, data_id)]`` events, or None if the subclass
+        assembles requests directly (column generation then falls back)."""
+        return None
+
+    def _finalize_columns(self, events: List[tuple]) -> TraceColumns:
+        """Columnar counterpart of :meth:`_finalize`: ``lexsort`` on
+        ``(t, m, data_id)`` reproduces the tuple sort order exactly."""
+        n = len(events)
+        t = np.fromiter((e[0] for e in events), dtype=np.float64, count=n)
+        m = np.fromiter((e[1] for e in events), dtype=np.int64, count=n)
+        d = np.fromiter((e[2] for e in events), dtype=np.int64, count=n)
+        order = np.lexsort((d, m, t))
+        t, m, d = t[order], m[order], d[order]
+        dl = self.deadlines
+        deadline = (
+            None if dl is None
+            else np.asarray(dl, dtype=np.float64)[m]
+        )
+        return TraceColumns(arrival=t, model=m, data_id=d, deadline=deadline)
 
     def _finalize(self, events: List[tuple]) -> List[Request]:
         """``[(t, m, data_id)]`` -> sorted Request list with deadlines."""

@@ -42,7 +42,9 @@ def test_port_package_is_present():
                    "models/convert.py", "core/simulator.py", "core/sweep.py",
                    "core/adaptive.py", "launch/serve.py",
                    "core/telemetry.py", "core/cluster.py",
-                   "runtime/router.py", "runtime/fault_tolerance.py"):
+                   "runtime/router.py", "runtime/fault_tolerance.py",
+                   "core/simfast.py", "core/clusterfast.py",
+                   "core/seedband.py"):
         assert module in names, module
     assert (ROOT / "src" / "repro_torch" / "csrc" / "stability_score.cu").exists()
     assert [p.name for p in EXAMPLES] == ["quickstart.py",

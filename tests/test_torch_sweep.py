@@ -7,12 +7,15 @@ two spawned workers must equal the serial run bitwise, in grid order.
 
 import dataclasses
 
+import numpy as np
 import pytest
 
 import repro.core as R
+from torch_compare import plain
 from repro_torch.core import (
     AdaptConfig,
     ProfileTable,
+    ScanEngineUnsupported,
     SweepRunner,
     SweepSpec,
 )
@@ -133,11 +136,41 @@ def test_two_workers_equal_serial_bitwise_in_grid_order():
     dict(engine="scan", trace=True),
 ])
 def test_tiers_not_ported_raise(kwargs):
-    """The compiled scan tier is the one tier not ported: it raises for a
-    single-device cell, a fleet cell and a traced cell alike."""
+    """The compiled scan tier's cells, single-device, fleet and traced,
+    give the reference's sweep cell: the same metrics and, traced, the same
+    timeline apart from each decision's score and margin (ulp-level, held
+    at rtol 1e-9 and atol 1e-12). The reference rejects a traced fleet
+    cell; so does the port, with the same error. (The name is historical:
+    these cases raised while the tier was not ported.)"""
     runner = SweepRunner(ProfileTable.paper_rtx3080())
-    with pytest.raises(NotImplementedError, match="scan"):
-        runner.run_cell(SweepSpec(policy="edgeserving", **kwargs, **SMALL))
+    ref_runner = R.SweepRunner(R.ProfileTable.paper_rtx3080())
+    spec = SweepSpec(policy="edgeserving", rate=140.0, **kwargs, **SMALL)
+    got = runner.run_cell(spec)
+    want = ref_runner.run_cell(_ref_spec(spec))
+    assert got.spec == spec
+    assert _plain(got.metrics) == _plain(want.metrics), spec.title()
+    assert got.metrics == runner.run_cell(
+        dataclasses.replace(spec, engine="python")).metrics
+    if spec.trace:
+        assert got.trace.meta == want.trace.meta
+        assert plain(got.trace.spans) == plain(want.trace.spans)
+        assert len(got.trace.decisions) == len(want.trace.decisions)
+        for g, w in zip(got.trace.decisions, want.trace.decisions):
+            gd, wd = dataclasses.asdict(g), dataclasses.asdict(w)
+            for f in ("score", "margin"):
+                np.testing.assert_allclose(gd.pop(f), wd.pop(f), rtol=1e-9,
+                                           atol=1e-12)
+            assert gd == wd
+        fleet = dataclasses.replace(spec, fleet="homogeneous", fleet_size=2)
+        with pytest.raises(R.ScanEngineUnsupported) as ref_err:
+            ref_runner.run_cell(_ref_spec(fleet))
+        with pytest.raises(ScanEngineUnsupported) as err:
+            runner.run_cell(fleet)
+        assert str(err.value) == str(ref_err.value).replace(
+            "documented loud-reject; see docs/simulator.md",
+            "a documented loud reject")
+    else:
+        assert got.trace is None and want.trace is None
 
 
 def test_cluster_grid_and_bad_fields_raise():

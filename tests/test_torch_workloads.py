@@ -2,8 +2,11 @@
 
 Both packages draw every trace from numpy's ``Generator`` in the same order,
 so a trace for a given seed must be bitwise the reference's: the tuples are
-compared with ``==``, not a tolerance.
+compared with ``==``, not a tolerance. The columnar form the compiled scans
+read (``TraceColumns``) is held the same way.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -101,3 +104,45 @@ def test_zero_rate_models_get_no_traffic():
         assert _rows(got) == _rows(want)
         assert {r.model for r in got} == {1}
         assert np.all(np.diff([r.arrival for r in got]) >= 0)
+
+
+def _columns_equal(got, want):
+    assert np.array_equal(got.arrival, want.arrival)
+    assert np.array_equal(got.model, want.model)
+    assert np.array_equal(got.data_id, want.data_id)
+    if want.deadline is None:
+        assert got.deadline is None
+    else:
+        assert np.array_equal(got.deadline, want.deadline, equal_nan=True)
+    assert got.arrival.dtype == want.arrival.dtype == np.float64
+    assert got.model.dtype == want.model.dtype
+
+
+@pytest.mark.parametrize("deadlines", [None, DEADLINES],
+                         ids=["scalar_slo", "per_model_slo"])
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("name", sorted(ref.SCENARIOS))
+def test_trace_columns_equal_the_reference(name, seed, deadlines):
+    """Every scenario's ``generate_columns`` is the reference's, and the
+    columns of its ``generate()`` lane (trace replay falls back through
+    ``generate``)."""
+    ref_p, port_p = _both(name, deadlines)
+    got = port_p.generate_columns(HORIZON, seed=seed)
+    _columns_equal(got, ref_p.generate_columns(HORIZON, seed=seed))
+    _columns_equal(got, port.columns_from_requests(
+        port_p.generate(HORIZON, seed=seed)))
+    assert len(got) > 100
+
+
+def test_trace_columns_index_as_requests():
+    proc = port.make_scenario("mmpp", RATES, deadlines=DEADLINES)
+    reqs = proc.generate(HORIZON, seed=1)
+    cols = proc.generate_columns(HORIZON, seed=1)
+    assert len(cols) == len(reqs)
+    assert list(cols) == reqs
+    assert cols[len(reqs) // 2] == reqs[len(reqs) // 2]
+    mixed = [reqs[0], dataclasses.replace(reqs[1], deadline=None)]
+    want = ref.columns_from_requests(
+        [ref.Request(**dataclasses.asdict(r)) for r in mixed])
+    _columns_equal(port.columns_from_requests(mixed), want)
+    assert port.columns_from_requests(mixed)[1].deadline is None
