@@ -88,7 +88,25 @@ early-exit LMs (served quanta and KV-cache decode):
    decode-attention and rmsnorm launches must equal the count the steps
    imply, and the profiled step must run one decode-attention kernel a
    layer;
-12. the ``serve_multi_model`` LMs (``lm_multi``): the three float32 LMs of
+12. the rest of the model zoo (``lm_zoo``): the LM kernels against their
+   plain versions at the zoo's new shapes (GQA groups 9 and 1, head dim
+   64, the Seamless encoder's non-causal S = 1024, LLaVA's 2880 patches,
+   rmsnorm rows of 7168/1536/512/64, exit heads at D = 7168 and V =
+   256206), timed; (a) DeepSeek-MoE-16B, DeepSeek-V3, Jamba, RWKV6,
+   SeamlessM4T, StarCoder2 and LLaVA-NeXT on the card against the CPU in
+   float32 at full width (depth and routed experts cut, printed in
+   ``cut``): every exit's logits and exit decision, the MoE and Jamba
+   models block by block on the CPU's inputs (expert sets compared token
+   by token, every flip a near-tie, outputs of the tokens routed alike
+   held), a teacher-forced decode against the prefill (MLA in both forms,
+   Seamless also from ``prepare_decode_cache``); (b) the seven in bfloat16
+   at full width one at a time (Jamba 16 layers, V3 5), every exit at
+   B = 1 and 8 with the launches the family implies, the host/device split
+   of a final-exit quantum, the router's ties, then 16 greedy decode steps
+   at B = 1; (c) RWKV6, Seamless, StarCoder2 and DeepSeek-MoE served live
+   together (profile, then Poisson 4:3:2:1 at 90% busy, SLO 50 ms, the
+   ``cuda`` backend beside the numpy shadow, launches as implied);
+13. the ``serve_multi_model`` LMs (``lm_multi``): the three float32 LMs of
    ``examples/serve_multi_model.py`` (head dims 16 and 32) built by
    ``examples_torch/serve_multi_model.py``, card against CPU at every exit,
    their kernels against the plain versions at their shapes (flash
@@ -99,7 +117,7 @@ early-exit LMs (served quanta and KV-cache decode):
    traced rounds), refresh events = ``profiler_refreshes``, one span per
    arrival, ``tools/tracestats.py`` reading both exports, and one profiled
    quantum per model (idle share);
-13. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
+14. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
 
 Each phase prints JSON lines. Any failed check raises, so the script exits
 non-zero before the last line. Without a CUDA device, or outside a checkout
@@ -1665,24 +1683,19 @@ def _decode_edge_checks(cfg, dev, gen):
     return errs
 
 
-def phase_lm_kernels(configs, device):
-    """Every LM kernel against its plain version at the served shapes, in
-    bfloat16 and float32; bfloat16 times at each shape, and float32 times
-    at the shapes of ``F32_TIMED`` (keyed ``<label>/float32``)."""
-    import torch
-
+def _kernel_wrappers():
+    """{kernel: (the wrapper, its plain version)}, each taking the inputs
+    of ``_lm_kernel_inputs``."""
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_plain,
     )
-    from repro_torch.kernels.exit_head.ops import exit_head, exit_head_path
+    from repro_torch.kernels.exit_head.ops import exit_head
     from repro_torch.kernels.exit_head.ref import exit_head_plain
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_pair
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
-
-    from repro_torch.device import synchronize
 
     def attention(q, k, v, causal):
         return flash_attention(q, k, v, causal=causal)
@@ -1694,17 +1707,27 @@ def phase_lm_kernels(configs, device):
         return (rmsnorm_plain(*args) if len(args) == 2 else
                 (rmsnorm_plain(*args[:2]), rmsnorm_plain(*args[2:])))
 
-    wrappers = {"rmsnorm": (norm, norm_plain),
-                "flash_attention": (attention, flash_attention_plain),
-                "exit_head": (exit_head, exit_head_plain),
-                "decode_attention": (decode_attention,
-                                     decode_attention_plain)}
-    dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    return {"rmsnorm": (norm, norm_plain),
+            "flash_attention": (attention, flash_attention_plain),
+            "exit_head": (exit_head, exit_head_plain),
+            "decode_attention": (decode_attention, decode_attention_plain)}
+
+
+def run_kernel_cases(cases, dev, gen, f32_timed=frozenset()):
+    """Each (kernel, label, shape) of ``cases`` against its plain version
+    in bfloat16 and float32, timed in bfloat16 (and in float32 where
+    ``(kernel, label)`` is in ``f32_timed``, keyed ``<label>/float32``).
+    Returns ({kernel: {dtype: max abs err}}, {kernel: {label: timing}})."""
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.exit_head.ops import exit_head_path
+
+    wrappers = _kernel_wrappers()
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in wrappers}
     timings = {k: {} for k in wrappers}
-    for kernel, label, shape in _lm_kernel_cases(configs):
+    for kernel, label, shape in cases:
         fn, plain = wrappers[kernel]
         for dname, dtype in dtypes.items():
             args = _lm_kernel_inputs(kernel, shape, dtype, dev, gen)
@@ -1713,7 +1736,7 @@ def phase_lm_kernels(configs, device):
             want = plain(*args)
             errs[kernel][dname] = max(errs[kernel][dname], _lm_compare(
                 kernel, args, got, want, dname, label))
-            if dname != "bfloat16" and (kernel, label) not in F32_TIMED:
+            if dname != "bfloat16" and (kernel, label) not in f32_timed:
                 continue
             nbytes, ops, rate = _lm_kernel_cost(kernel, shape, dtype, args)
             bound, bound_by = _bound_ms(nbytes, ops, rate)
@@ -1737,6 +1760,22 @@ def phase_lm_kernels(configs, device):
                     path=exit_head_path(h, w),
                     matmul_ms=cuda_ms(lambda: torch.matmul(h, w), 20))
             del got, want, args
+    return errs, timings
+
+
+def phase_lm_kernels(configs, device):
+    """Every LM kernel against its plain version at the served shapes, in
+    bfloat16 and float32; bfloat16 times at each shape, and float32 times
+    at the shapes of ``F32_TIMED`` (keyed ``<label>/float32``)."""
+    import torch
+
+    from repro_torch.kernels.exit_head.ops import exit_head
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    errs, timings = run_kernel_cases(_lm_kernel_cases(configs), dev, gen,
+                                     F32_TIMED)
     if dev.type == "cuda":
         # ties across the exit head's tile boundaries go to the first index
         for dtype in dtypes.values():
@@ -1963,17 +2002,55 @@ def phase_lm_decode_models(configs, device, prompt=DECODE_CHECK["prompt"],
 # ---------------------------------------------------------------------------
 
 
+def implied_launches(cfg, exit_idx, step=False):
+    """The LM kernels' launches that one served quantum (the trunk through
+    exit e, then the exit head) or, with ``step``, one decode step at exit
+    e implies for ``cfg``'s family, L = the exit's layers:
+
+    * dense and GQA MoE: rmsnorm 2 L (+L with q/k norm: q and k in one
+      launch), flash attention L; a step: decode attention L;
+    * MLA (DeepSeek-V3): rmsnorm 4 L (the two latent norms), no attention
+      kernel (its attention is plain torch) and no decode attention;
+    * Jamba: rmsnorm 2 L, flash attention and decode attention once per
+      superblock (its one attention sublayer);
+    * RWKV: rmsnorm 3 L (the per-head norm over B x S x H rows), no
+      attention;
+    * encoder-decoder: rmsnorm 3 L + 2 L_enc + 1 (the encoder's norms and
+      its final norm), flash attention L + L_enc (the decoder's causal and
+      the encoder's bidirectional self-attention; prefill cross-attention
+      is plain torch); a step: rmsnorm 3 L and decode attention 2 L (the
+      cached self-attention and the cross-attention over all source
+      positions).
+
+    A quantum adds one exit head; a step one rmsnorm (the exit norm)."""
+    layers = cfg.exits[exit_idx]
+    if cfg.family == "rwkv":
+        norms, attn = 3 * layers, 0
+    elif cfg.family == "jamba":
+        norms, attn = 2 * layers, layers // cfg.attn_period
+    elif cfg.family == "encdec":
+        norms, attn = 3 * layers, layers
+    elif cfg.mla:
+        norms, attn = 4 * layers, 0
+    else:
+        norms, attn = (3 if cfg.qk_norm else 2) * layers, layers
+    if step:
+        return {"decode_attention": 2 * attn if cfg.family == "encdec"
+                else attn, "rmsnorm": norms + 1}
+    if cfg.family == "encdec":
+        norms += 2 * cfg.num_encoder_layers + 1
+        attn += cfg.num_encoder_layers
+    return {"rmsnorm": norms, "flash_attention": attn, "exit_head": 1}
+
+
 def _expected_launches(served, decisions):
-    """Launches of each LM kernel implied by the engine's decisions:
-    rmsnorm 2 L_e per quantum (+ L_e for per-head q/k norm: q and k in one
-    launch), flash attention L_e, the exit head 1."""
+    """Launches of each LM kernel implied by the engine's decisions
+    (``implied_launches`` of each quantum)."""
     want = {"rmsnorm": 0, "flash_attention": 0, "exit_head": 0}
     for d in decisions:
-        cfg = served[d.model].values.cfg
-        layers = cfg.exits[d.exit_idx]
-        want["rmsnorm"] += layers * (3 if cfg.qk_norm else 2)
-        want["flash_attention"] += layers
-        want["exit_head"] += 1
+        for k, n in implied_launches(served[d.model].values.cfg,
+                                     d.exit_idx).items():
+            want[k] += n
     return want
 
 
@@ -2100,9 +2177,10 @@ def _device_ms_by_class(prof):
     return by_class, counts
 
 
-def lm_breakdown(served):
+def lm_breakdown(served, emit_line=True, runs=5):
     """Where a quantum's time goes, at the final exit and B = 1 and 8: the
-    host-clock time of a quantum (median of 5, no profiler), and from one
+    host-clock time of a quantum (median of ``runs``, no profiler), and
+    from one
     quantum under ``torch.profiler`` the device time of its kernels by class
     (our three kernels, matrix products, the rest); idle share = 1 - device
     time / quantum time."""
@@ -2115,7 +2193,7 @@ def lm_breakdown(served):
         e = mod.num_exits - 1
         for b in (1, LM_BATCHES[-1]):
             walls = []
-            for _ in range(5):
+            for _ in range(runs):
                 t0 = time.perf_counter()
                 run_quantum(mod, e, b)
                 walls.append(time.perf_counter() - t0)
@@ -2129,7 +2207,8 @@ def lm_breakdown(served):
                 quantum_ms=wall_ms, device_ms=device_ms,
                 idle_share=1.0 - device_ms / wall_ms,
                 device_ms_by_class=by_class, kernels_by_class=counts)
-    emit("lm_breakdown", rows=rows)
+    if emit_line:
+        emit("lm_breakdown", rows=rows)
     return rows
 
 
@@ -2139,12 +2218,10 @@ def lm_breakdown(served):
 
 
 def _decode_launches_implied(cfg, exit_idx, steps):
-    """Launches a run of decode steps implies: decode attention L_e a
-    step; rmsnorm 2 L_e (+L_e with q/k norm: q and k in one launch) + 1
-    (the exit norm)."""
-    layers = cfg.exits[exit_idx]
-    return {"decode_attention": steps * layers,
-            "rmsnorm": steps * (layers * (3 if cfg.qk_norm else 2) + 1)}
+    """Launches a run of decode steps implies (``implied_launches`` of a
+    step, ``steps`` times)."""
+    return {k: steps * n for k, n in
+            implied_launches(cfg, exit_idx, step=True).items()}
 
 
 def _check_profiled_steps(label, seen, layers):
@@ -2193,7 +2270,7 @@ def phase_lm_decode(served, device, steps=DECODE_STEPS,
     for mod in served:
         model, cfg = mod.values, mod.values.cfg
         for b in (1, LM_BATCHES[-1]):
-            prompt = mod.data_fn(b)
+            prompt = mod.data_fn(b)["tokens"]
             for e in (0, cfg.num_exits - 1):
                 layers = cfg.exits[e]
                 if on_card:
@@ -2494,6 +2571,699 @@ def phase_lm_multi(device, duration=HORIZON_S):
 
 
 # ---------------------------------------------------------------------------
+# Phase lm_zoo: the rest of the model zoo (MoE, MLA, Jamba, RWKV-6, the
+# encoder-decoder, StarCoder2, LLaVA-NeXT)
+# ---------------------------------------------------------------------------
+
+ZOO_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b", "jamba-v0.1-52b",
+             "rwkv6-1.6b", "seamless-m4t-large-v2", "starcoder2-7b",
+             "llava-next-mistral-7b")
+# (a) float32, card against CPU, at full width: depth and the routed
+# experts cut to what the CPU holds in float32 beside the card's copy
+ZOO_F32_CUTS = {
+    "deepseek-moe-16b": dict(num_layers=3, exits=(2, 3)),
+    "deepseek-v3-671b": dict(num_layers=3, exits=(2, 3), dense_prefix=1,
+                             num_experts=16),
+    "jamba-v0.1-52b": dict(num_layers=8, exits=(8,), num_experts=4),
+    "rwkv6-1.6b": dict(num_layers=4, exits=(2, 4)),
+    "seamless-m4t-large-v2": dict(num_layers=2, num_encoder_layers=2,
+                                  exits=(1, 2)),
+    "starcoder2-7b": dict(num_layers=2, exits=(1, 2)),
+    "llava-next-mistral-7b": dict(num_layers=2, exits=(1, 2)),
+}
+ZOO_F32 = dict(batch=2, seq=16, prompt=8, steps=8)
+# (b) bfloat16 at full width, one model at a time: the two depth cuts one
+# card's 80 GB forces
+ZOO_BF16_CUTS = {"jamba-v0.1-52b": dict(num_layers=16, exits=(8, 16)),
+                 "deepseek-v3-671b": dict(num_layers=5, exits=(4, 5))}
+ZOO_DECODE_STEPS = 16
+# (c) one live deployment of four families that fit on the card together,
+# with Poisson traffic 4:3:2:1 in this order
+ZOO_LIVE = ("rwkv6-1.6b", "seamless-m4t-large-v2", "starcoder2-7b",
+            "deepseek-moe-16b")
+ZOO_LIVE_SPLIT = (4.0, 3.0, 2.0, 1.0)
+ZOO_PROFILE = dict(repeats=3, warmup=1)
+# a token whose routed experts differ between the card and the CPU must
+# have had its k-th and (k+1)-th router scores this close on the CPU
+MOE_TIE_RTOL = 1e-5
+
+
+def _zoo_kernel_cases():
+    """The kernel shapes the zoo's served quanta and decode steps give, at
+    B = 8 (and B = 1 where the kernel's plan changes): GQA group 9
+    (StarCoder2) and 1 (DeepSeek-MoE's MHA), head dim 64 (Seamless), the
+    encoder's non-causal attention over 1024 frames, LLaVA's 2880
+    patches, rmsnorm rows of 7168, 1536 and 512 (V3, its latent norms)
+    and 64 (RWKV's per-head norm, 32768 rows), and exit heads up to
+    D = 7168 / V = 129280 and V = 256206 (whose bfloat16 rows are not
+    16-byte multiples)."""
+    b, s, dec = 8, LM_PROMPT, LM_PROMPT + ZOO_DECODE_STEPS
+    cases = [
+        ("flash_attention", "starcoder2-7b/prefill", (b, 36, 4, s, 128, True)),
+        ("flash_attention", "deepseek-moe-16b/prefill",
+         (b, 16, 16, s, 128, True)),
+        ("flash_attention", "seamless/encoder_s1024",
+         (b, 16, 16, 1024, 64, False)),
+        ("flash_attention", "seamless/decoder", (b, 16, 16, s, 64, True)),
+        ("flash_attention", "llava/prefill_s2880_b1",
+         (1, 32, 8, 2880, 128, True)),
+        ("decode_attention", "starcoder2-7b/step_b1", (1, 36, 4, dec, 128, 1)),
+        ("decode_attention", "starcoder2-7b/step",
+         (b, 36, 4, dec, 128, 1)),
+        ("decode_attention", "deepseek-moe-16b/step_b1",
+         (1, 16, 16, dec, 128, 1)),
+        ("decode_attention", "seamless/self_b1", (1, 16, 16, dec, 64, 1)),
+        ("decode_attention", "seamless/cross_s1024_b1",
+         (1, 16, 16, 1024, 64, 1)),
+        ("decode_attention", "jamba/step_b1", (1, 32, 8, dec, 128, 1)),
+        ("rmsnorm", "deepseek-v3/residual", (b * s, 7168)),
+        ("rmsnorm", "deepseek-v3/q_a_norm", (b * s, 1536)),
+        ("rmsnorm", "deepseek-v3/kv_a_norm", (b * s, 512)),
+        ("rmsnorm", "rwkv6/head_norm", (b * s * 32, 64)),
+        ("rmsnorm", "rwkv6/head_norm_decode_b1", (32, 64)),
+        ("rmsnorm", "seamless/encoder", (b * 1024, 1024)),
+        ("rmsnorm", "starcoder2-7b/residual", (b * s, 4608)),
+        ("exit_head", "deepseek-v3/served", (b, 7168, 129280)),
+        ("exit_head", "deepseek-v3/served_t1", (1, 7168, 129280)),
+        ("exit_head", "seamless/served", (b, 1024, 256206)),
+        ("exit_head", "deepseek-moe-16b/served", (b, 2048, 102400)),
+        ("exit_head", "starcoder2-7b/served", (b, 4608, 49152)),
+        ("exit_head", "rwkv6/served", (b, 2048, 65536)),
+    ]
+    return cases
+
+
+def _zoo_batch(cfg, b, s, device, seed):
+    """A seeded batch of ``cfg``'s family (``serve_lms``'s payload) with
+    ``s`` target tokens (or patches), drawn on the CPU and moved."""
+    import torch
+
+    from repro_torch.runtime.server import lm_payload
+
+    gen = torch.Generator().manual_seed(seed)
+    return {k: v.to(device) for k, v in
+            lm_payload(cfg, gen, s, b).items()}
+
+
+def _blocks(model):
+    """(label, fn(h) -> h) for each block whose output may depend on
+    routing: every layer of a DecoderLM, every sublayer of a JambaLM."""
+    from repro_torch.models.jamba_model import sub_kinds
+    from repro_torch.models.transformer import _block_apply
+
+    cfg = model.cfg
+    if cfg.family == "jamba":
+        for i, seg in enumerate(model.segments):
+            for n, sb in enumerate(seg):
+                for j, kind in enumerate(sub_kinds(cfg)):
+                    yield (f"seg{i}/sb{n}/sub{j}",
+                           lambda h, sub=sb[f"sub{j}"], kind=kind:
+                           model.sublayer_apply(sub, kind, h, None,
+                                                False)[0])
+    else:
+        for i, seg in enumerate(model.segments):
+            for n, blk in enumerate(seg):
+                yield (f"seg{i}/layer{n}",
+                       lambda h, blk=blk: _block_apply(blk, h, cfg,
+                                                       False)[0])
+
+
+def _route_diff(card_log, cpu_log):
+    """Compare two runs' routing logs call by call. Returns (per call a
+    bool mask of the tokens routed alike, with the same experts kept;
+    the flips: (call, token, the CPU's relative k-th/(k+1)-th margin) of
+    tokens whose expert set differs; the tokens whose experts agree but
+    whose capacity slots do not)."""
+    import torch
+
+    agree, flips, shifted = [], [], 0
+    for c, (a, b) in enumerate(zip(card_log, cpu_log)):
+        a = {k: v.cpu() for k, v in a.items()}
+        b = {k: v.cpu() for k, v in b.items()}
+        ia, ib = a["idx"], b["idx"]
+        ka = torch.where(a["kept"], ia, -1).sort(-1).values
+        kb = torch.where(b["kept"], ib, -1).sort(-1).values
+        same_set = (ia.sort(-1).values == ib.sort(-1).values).all(-1)
+        same = same_set & (ka == kb).all(-1)
+        margin = (b["kth"] - b["next"]) / b["kth"].abs().clamp(min=1e-30)
+        for t in torch.nonzero(~same_set).flatten().tolist():
+            flips.append((c, t, float(margin[t])))
+        shifted += int((same_set & ~same).sum())
+        agree.append(same)
+    return agree, flips, shifted
+
+
+def _check_flips(label, flips):
+    """Every flip a near-tie on the CPU's scores."""
+    bad = [f for f in flips if f[2] > MOE_TIE_RTOL]
+    check(not bad, f"{label}: routing flips beyond a near-tie "
+                   f"(call, token, margin): {bad[:5]}")
+
+
+def _held_run(label, run_card, run_cpu):
+    """Run ``run_card()`` and ``run_cpu()`` under ``record_routing``; the
+    first routing call that differs must differ only on near-ties. Returns
+    (card out, CPU out, routed alike everywhere, the flips)."""
+    from repro_torch.models.moe import record_routing
+
+    with record_routing() as log_card:
+        got = run_card()
+    with record_routing() as log_cpu:
+        want = run_cpu()
+    check(len(log_card) == len(log_cpu), f"{label}: routing calls "
+          f"{len(log_card)} on the card, {len(log_cpu)} on the CPU")
+    agree, flips, shifted = _route_diff(log_card, log_cpu)
+    first = next((c for c, a in enumerate(agree) if not bool(a.all())), None)
+    if first is not None:
+        _check_flips(label, [f for f in flips if f[0] == first])
+    return got, want, first is None, [f for f in flips if f[0] == first]
+
+
+def _zoo_blockwise(arch, model, twin, batch, tol):
+    """Feed each block of the card's model the CPU's input to that block;
+    compare the routed experts token by token and hold the outputs of the
+    tokens routed alike at ``tol`` relative to each token's largest output
+    element (``tol * (1 + max |row|)``). Returns (the largest error over
+    ``1 + max |row|``, flips, tokens
+    whose capacity slots moved, the CPU's hidden state after each block)."""
+    import torch
+
+    from repro_torch.models.moe import record_routing
+
+    dev = model.embed.device
+    with torch.inference_mode():
+        h_cpu = twin._embed({k: v.cpu() for k, v in batch.items()})
+        err, flips, shifted, states = 0.0, [], 0, []
+        for (label, f_card), (_, f_cpu) in zip(_blocks(model),
+                                               _blocks(twin)):
+            label = f"{arch}/{label}"
+            with record_routing() as log_cpu:
+                out_cpu = f_cpu(h_cpu)
+            with record_routing() as log_card:
+                out_card = f_card(h_cpu.to(dev)).cpu()
+            agree, fl, sh = _route_diff(log_card, log_cpu)
+            _check_flips(label, fl)
+            flips += fl
+            shifted += sh
+            d = out_cpu.shape[-1]
+            keep = agree[0] if agree else torch.ones(
+                out_cpu.reshape(-1, d).shape[0], dtype=torch.bool)
+            g, w = out_card.reshape(-1, d)[keep], out_cpu.reshape(-1, d)[keep]
+            check(bool(torch.isfinite(out_card).all()),
+                  f"{label}: not finite on the card")
+            # each token's error against its own largest output: the
+            # reference's expert init (fan-in = the expert count) drives
+            # MoE outputs to 1e3-1e5, where float32 rounding alone leaves
+            # more than 2e-3 on the elements that cancel to near zero
+            bad = ((g - w).abs().amax(-1)
+                   > tol + tol * w.abs().amax(-1))
+            check(not bool(bad.any()),
+                  f"{label}: card and CPU block outputs differ by "
+                  f"{float((g - w).abs().max())} on tokens "
+                  f"{torch.nonzero(keep).flatten()[bad].tolist()} of "
+                  f"{int(keep.sum())} routed alike; flips {fl}, capacity "
+                  f"moves {sh}")
+            err = max(err, float(((g - w).abs().amax(-1)
+                                   / (1 + w.abs().amax(-1))).max()))
+            h_cpu = out_cpu
+            states.append(out_cpu)
+    return err, flips, shifted, states
+
+
+def _into_buffers(buf, pref, prompt):
+    """Copy a prefill's caches ``pref`` into ``init_cache``'s buffers
+    ``buf`` (the same nested structure): position-indexed leaves (k, v,
+    MLA's latent) at positions < prompt, the rest (lengths, states,
+    cross-attention K/V) whole."""
+    if isinstance(buf, dict):
+        for key in buf:
+            _into_buffers(buf[key], pref[key], prompt)
+    elif isinstance(buf, list):
+        for b, p in zip(buf, pref):
+            _into_buffers(b, p, prompt)
+    elif buf.shape == pref.shape:
+        buf.copy_(pref)
+    else:
+        buf[:, :, :prompt] = pref
+    return buf
+
+
+def _init_cache(model, batch, b, max_len, e):
+    kw = ({"src_len": batch["src_embeds"].shape[1]}
+          if model.cfg.family == "encdec" else {})
+    return model.init_cache(b, max_len, e, **kw)
+
+
+def _prompt(batch, n):
+    """The first ``n`` target positions of a batch."""
+    return {k: (v if k == "src_embeds" else v[:, :n])
+            for k, v in batch.items()}
+
+
+def _step_input(batch, i):
+    """The teacher-forced input of position i: a token, or an embedding."""
+    return (batch["embeds"][:, i:i + 1] if "embeds" in batch
+            else batch["tokens"][:, i:i + 1])
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _cache_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _cache_leaves(v)
+    else:
+        yield tree
+
+
+def _teacher_forced_zoo(model, batch, prompt, steps, max_len, e,
+                        prepared=False):
+    """Prefill the first ``prompt`` positions into ``init_cache`` buffers
+    (or, with ``prepared``, start from the encoder-decoder's
+    ``prepare_decode_cache`` with an empty self-attention cache and decode
+    from position 0), then decode the next positions teacher-forced.
+    Returns [per step the CPU copy of its logits] and the final cache on
+    the CPU."""
+    import torch
+
+    b = next(iter(batch.values())).shape[0]
+    outs = []
+    with torch.inference_mode():
+        if prepared:
+            cache = model.prepare_decode_cache(batch["src_embeds"], b,
+                                               max_len, e)
+            start = 0
+        else:
+            logits, pref = model.prefill(_prompt(batch, prompt), e)
+            cache = _into_buffers(_init_cache(model, batch, b, max_len, e),
+                                  pref, prompt)
+            outs.append(logits.cpu())
+            start = prompt
+        for i in range(start, prompt + steps):
+            logits, cache = model.decode_step(_step_input(batch, i), cache,
+                                              e)
+            outs.append(logits.cpu())
+    cpu_cache = [t.cpu() for t in _cache_leaves(cache)]
+    return outs, cpu_cache
+
+
+def _compare(label, got, want, tol):
+    """Max abs error of ``got`` against ``want`` (CPU tensors); raises
+    beyond ``tol``."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+          f"{label}: card and CPU differ by {err}")
+    return err
+
+
+def _compare_decision(label, got, want, tol):
+    """Exit decisions (token, max, lse): max and lse within ``tol``, the
+    token equal or scoring within ``tol`` of the CPU's maximum."""
+    import torch
+
+    err = max(_compare(f"{label} exit head max", got[1], want[1], tol),
+              _compare(f"{label} exit head lse", got[2], want[2], tol))
+    check(bool(torch.all((got[0] == want[0]) | (want[1] - got[1] <= tol))),
+          f"{label}: exit token {got[0].tolist()} vs {want[0].tolist()}")
+    return err
+
+
+def _zoo_f32_one(arch, cfg, device):
+    """Part (a) for one config: card against CPU in float32. Returns the
+    row for the phase's line."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.exit_head.ops import exit_head
+    from repro_torch.kernels.exit_head.ref import exit_head_plain
+    from repro_torch.models import build_model
+
+    tol = LM_TOL["float32"]
+    f = ZOO_F32
+    cut = dict(ZOO_F32_CUTS[arch])
+    if cfg.frontend == "vision":
+        cut["frontend_seq"] = f["prompt"] + f["steps"]
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, **cut)
+    gen = torch.Generator(device=device).manual_seed(23)
+    model = build_model(cfg32, generator=gen, device=device).eval()
+    twin = copy.deepcopy(model).to("cpu")
+    n = f["prompt"] + f["steps"]
+    batch = _zoo_batch(cfg32, f["batch"], n, device, seed=len(arch))
+    fwd = {k: (v if k == "src_embeds" else v[:, :f["seq"]])
+           for k, v in batch.items()}
+    cpu_fwd = {k: v.cpu() for k, v in fwd.items()}
+    routed = cfg.family in ("moe", "jamba")
+    row = dict(cut={k: v for k, v in cut.items()}, errs={}, flips=[],
+               held={})
+    if routed:
+        err, flips, shifted, states = _zoo_blockwise(arch, model, twin, fwd,
+                                                     tol)
+        row["errs"]["blocks_per_row_scale"] = err
+        row["flips"] += [("blocks",) + fl for fl in flips]
+        row["capacity_moves"] = shifted
+    with torch.inference_mode():
+        for e in range(cfg32.num_exits):
+            label = f"{arch}/exit{e}"
+            got, want, held, flips = _held_run(
+                label, lambda: model.forward_exit(fwd, e).cpu(),
+                lambda: twin.forward_exit(cpu_fwd, e))
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"{label}: logits {tuple(got.shape)} or not finite")
+            row["held"][f"forward/exit{e}"] = held
+            row["flips"] += [(f"forward/exit{e}",) + fl for fl in flips]
+            if held:
+                row["errs"][f"forward/exit{e}"] = _compare(
+                    label, got, want, tol)
+            dec, dec_cpu, held, _ = _held_run(
+                label, lambda: tuple(x.cpu() for x in
+                                     model.exit_decision(fwd, e)),
+                lambda: twin.exit_decision(cpu_fwd, e))
+            row["held"][f"decision/exit{e}"] = held
+            if held:
+                row["errs"][f"decision/exit{e}"] = _compare_decision(
+                    label, dec, dec_cpu, tol)
+            if routed:
+                # the exit's head and the exit head kernel on the CPU's own
+                # hidden state there: held whatever the routing did
+                h = states[cfg32.exits[e] - 1]
+                row["errs"][f"head_on_cpu_state/exit{e}"] = _compare(
+                    label, model._head(h.to(device), e).cpu(),
+                    twin._head(h, e), tol)
+                h_last = h[:, -1].contiguous()
+                row["errs"][f"decision_on_cpu_state/exit{e}"] = \
+                    _compare_decision(
+                        label,
+                        tuple(x.cpu() for x in exit_head(
+                            h_last.to(device), model.exit_norms[e],
+                            model.exit_head_weight(), eps=cfg32.norm_eps)),
+                        exit_head_plain(h_last, twin.exit_norms[e],
+                                        twin.exit_head_weight(),
+                                        cfg32.norm_eps), tol)
+        # teacher-forced decode, card against CPU and (without routing)
+        # against forward_exit over the whole sequence
+        e = cfg32.num_exits - 1
+        max_len = n + 2
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        forms = [("prefill", False)]
+        if cfg.family == "encdec":
+            forms.append(("prepared", True))
+        full = twin.forward_exit(cpu_batch, e)
+        for form, prepared in forms:
+            label = f"{arch}/decode/{form}"
+            (got, got_cache), (want, want_cache), held, flips = _held_run(
+                label, lambda: _teacher_forced_zoo(
+                    model, batch, f["prompt"], f["steps"], max_len, e,
+                    prepared),
+                lambda: _teacher_forced_zoo(
+                    twin, cpu_batch, f["prompt"], f["steps"], max_len, e,
+                    prepared))
+            got, want = torch.cat(got, 1), torch.cat(want, 1)
+            check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+            row["held"][f"decode/{form}"] = held
+            row["flips"] += [(f"decode/{form}",) + fl for fl in flips]
+            if held:
+                err = _compare(label, got, want, tol)
+                e_cache = max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got_cache, want_cache))
+                check(all(torch.allclose(g.float(), w.float(), rtol=tol,
+                                         atol=tol)
+                          for g, w in zip(got_cache, want_cache)),
+                      f"{label}: card and CPU caches differ by {e_cache}")
+                row["errs"][f"decode/{form}"] = err
+                row["errs"][f"decode/{form}/cache"] = e_cache
+            if not routed:  # MoE capacity differs between prefill and decode
+                first = 0 if prepared else f["prompt"] - 1
+                row["errs"][f"decode/{form}/vs_forward_exit"] = _compare(
+                    f"{label} against forward_exit", got, full[:, first:n],
+                    tol)
+        if cfg.mla:  # the absorbed form on the card equals the expanded one
+            absorbed = copy.copy(model)
+            absorbed.cfg = dataclasses.replace(cfg32,
+                                               mla_absorbed_decode=True)
+            label = f"{arch}/decode/absorbed"
+            (got_a, _), (got_x, _), held, _ = _held_run(
+                label, lambda: _teacher_forced_zoo(
+                    absorbed, batch, f["prompt"], f["steps"], max_len, e),
+                lambda: _teacher_forced_zoo(
+                    model, batch, f["prompt"], f["steps"], max_len, e))
+            row["held"]["decode/absorbed"] = held
+            if held:
+                row["errs"]["decode/absorbed_vs_expanded"] = _compare(
+                    label, torch.cat(got_a, 1), torch.cat(got_x, 1), tol)
+    row["params"] = sum(p.numel() for p in model.parameters())
+    del model, twin
+    torch.cuda.empty_cache()
+    return row
+
+
+def _count_ties(log):
+    """(tokens routed, tokens whose k-th and (k+1)-th scores are equal)."""
+    tokens = sum(int(c["kth"].numel()) for c in log)
+    ties = sum(int((c["kth"] == c["next"]).sum()) for c in log)
+    return tokens, ties
+
+
+def _zoo_full_one(arch, cfg, device):
+    """Part (b) for one config at full width in bfloat16: every exit at
+    B = 1 and 8 with the implied launches, the host/device split of a
+    final-exit quantum, the router's ties in one B = 8 quantum, then
+    prefill and greedy decode at B = 1."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.moe import record_routing
+    from repro_torch.runtime.server import run_quantum, serve_lms
+
+    cut = ZOO_BF16_CUTS.get(arch, {})
+    cfg = dataclasses.replace(cfg, **cut)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (mod,) = serve_lms({arch: cfg}, device=device, prompt_len=LM_PROMPT,
+                       max_batch=LM_BATCHES[-1])
+    build_s = time.perf_counter() - t0
+    model = mod.values
+    row = dict(cut=cut, build_seconds=build_s,
+               params=sum(p.numel() for p in model.parameters()),
+               quanta={}, launches={}, launches_implied={})
+    for b in (1, LM_BATCHES[-1]):
+        for e in range(cfg.num_exits):
+            reset_launch_counts()
+            idx, mx, lse = run_quantum(mod, e, b)
+            got = {k: launch_counts[k] for k in
+                   ("rmsnorm", "flash_attention", "exit_head",
+                    "decode_attention")}
+            want = dict(implied_launches(cfg, e), decode_attention=0)
+            label = f"{arch}/exit{e}/B{b}"
+            check(got == want, f"{label}: launches {got} != implied {want}")
+            check(bool(torch.isfinite(mx).all() & torch.isfinite(lse).all())
+                  and bool(((idx >= 0) & (idx < cfg.vocab_size)).all()),
+                  f"{label}: exit decision not finite or off the vocab")
+            for k, v in got.items():
+                row["launches"][k] = row["launches"].get(k, 0) + v
+                row["launches_implied"][k] = (
+                    row["launches_implied"].get(k, 0) + want[k])
+    row["breakdown"] = lm_breakdown([mod], emit_line=False, runs=3)
+    if cfg.family in ("moe", "jamba"):
+        with record_routing() as log:
+            run_quantum(mod, cfg.num_exits - 1, LM_BATCHES[-1])
+        tokens, ties = _count_ties(log)
+        row["router"] = dict(calls=len(log), tokens=tokens, ties=ties)
+    # prefill, then greedy decode at B = 1 at the final exit
+    e = cfg.num_exits - 1
+    batch = mod.data_fn(1)
+    prompt = (batch["embeds"] if "embeds" in batch else batch["tokens"]
+              ).shape[1]
+    steps = ZOO_DECODE_STEPS
+    with torch.inference_mode():
+        logits, pref = model.prefill(batch, e)
+        cache = _into_buffers(_init_cache(model, batch, 1, prompt + steps,
+                                          e), pref, prompt)
+        del pref
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        walls, finite, tokens = [], [], [tok]
+        for i in range(steps):
+            if i == steps // 2:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    logits, cache = model.decode_step(tok, cache, e)
+                    torch.cuda.synchronize()
+                by_class, kcounts = _device_ms_by_class(prof)
+            else:
+                t1 = time.perf_counter()
+                logits, cache = model.decode_step(tok, cache, e)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            finite.append(torch.isfinite(logits).all())
+            tok = logits.argmax(-1)
+            tokens.append(tok)
+        counts = {k: launch_counts[k] for k in ("decode_attention",
+                                                "rmsnorm")}
+    want = _decode_launches_implied(cfg, e, steps)
+    label = f"{arch}/decode"
+    check(counts == want, f"{label}: launches {counts} != implied {want}")
+    check(bool(torch.stack(finite).all()), f"{label}: logits not finite")
+    gen_tokens = torch.cat(tokens, 1)
+    check(bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()),
+          f"{label}: a token outside the vocabulary")
+    host_ms = float(np.median(walls)) * 1e3
+    device_ms = sum(by_class.values())
+    row["decode"] = dict(
+        prompt=prompt, steps=steps, step_host_ms=host_ms,
+        step_device_ms=device_ms, idle_share=1.0 - device_ms / host_ms,
+        device_ms_by_class=by_class, kernels_by_class=kcounts,
+        launches=counts, launches_implied=want)
+    for k, v in counts.items():
+        row["launches"][k] = row["launches"].get(k, 0) + v
+        row["launches_implied"][k] = (row["launches_implied"].get(k, 0)
+                                      + want[k])
+    row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del mod, model, cache, logits
+    torch.cuda.empty_cache()
+    return row
+
+
+def _zoo_live(device, horizon=HORIZON_S):
+    """Part (c): RWKV6-1.6B, SeamlessM4T-large-v2, StarCoder2-7B and
+    DeepSeek-MoE-16B served together in bfloat16 at full depth: the
+    profile, then the EdgeServing scheduler (``cuda`` backend, float64
+    numpy shadow) over Poisson 4:3:2:1 traffic that keeps the card 90%
+    busy at the final exit and B = 8, SLO 50 ms, drained."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (
+        SchedulerConfig,
+        make_scheduler,
+        poisson_arrivals,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime.server import (
+        ServingEngine,
+        measure_profile,
+        serve_lms,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_lms({a: get_config(a) for a in ZOO_LIVE}, device=device,
+                       prompt_len=LM_PROMPT, max_batch=LM_BATCHES[-1])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = measure_profile(served, batch_sizes=LM_BATCHES,
+                            exit_names=("exit0", "exit1", "exit2", "exit3"),
+                            **ZOO_PROFILE)
+    profile_s = time.perf_counter() - t0
+    n = len(served)
+    check(table.latency.shape == (n, 4, len(LM_BATCHES)), "zoo profile shape")
+    split = np.array(ZOO_LIVE_SPLIT) / sum(ZOO_LIVE_SPLIT)
+    per_request = table.latency[:, -1, -1] / LM_BATCHES[-1]
+    total = LM_BUSY / float(np.sum(split * per_request))
+    rates = total * split
+    cfg = SchedulerConfig(slo=SLO, max_batch=LM_BATCHES[-1], backend="cuda",
+                          device=device)
+    sched = make_scheduler("edgeserving", table, cfg)
+    rounds = record_rounds(sched)
+    engine = ServingEngine(served, sched)
+    engine.warmup()
+    arrivals = poisson_arrivals(rates.tolist(), horizon, seed=0)
+    reset_launch_counts()
+    completions, span = engine.run(arrivals, horizon, drain=True)
+    launches = {k: launch_counts[k] for k in KERNELS}
+    m = engine.metrics(table, SLO, span)
+    decisions = [r[1] for r in rounds if r[1] is not None]
+    scored = [r for r in rounds if r[0].nonempty()]
+    want = _expected_launches(served, decisions)
+    out = dict(
+        models=list(ZOO_LIVE), build_seconds=build_s,
+        profile_seconds=profile_s,
+        profile_ms={f"{table.model_names[i]}/{table.exit_names[e]}":
+                    [float(x) for x in table.latency[i, e] * 1e3]
+                    for i in range(n) for e in range(4)},
+        total_req_s=total, per_model_req_s=rates.tolist(),
+        arrivals=len(arrivals), completed=len(completions),
+        dropped=engine.dropped, residual=m.residual_queue, span_s=span,
+        p95_ms=m.p95_latency * 1e3, violation_ratio=m.violation_ratio,
+        mean_exit_depth=m.mean_exit_depth, utilization=m.utilization,
+        quanta=len(decisions), scoring_rounds=len(scored),
+        launches=launches, launches_implied=want,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        per_model=[dict(model=pm.model, completed=pm.num_completed,
+                        violation_ratio=pm.violation_ratio,
+                        p95_ms=pm.p95_latency * 1e3)
+                   for pm in m.per_model])
+    check(len(completions) + engine.dropped + m.residual_queue
+          == len(arrivals), "zoo arrivals not conserved")
+    check(len(decisions) > 0, "no zoo quantum ran")
+    check(launches["stability_score"] == len(scored),
+          f"zoo stability launches {launches['stability_score']} != "
+          f"scoring rounds {len(scored)}")
+    for kernel, k_n in want.items():
+        check(launches[kernel] == k_n, f"zoo {kernel} launches "
+              f"{launches[kernel]} != {k_n} implied by the decisions")
+    _, ties = shadow_check("lm_zoo_shadow", scored,
+                           max_batch=LM_BATCHES[-1])
+    out["float32_ties"] = ties
+    del served, engine
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_lm_zoo(device):
+    """The rest of the model zoo on the card: (a) every new family card
+    against CPU in float32 at full width (depth and routed experts cut),
+    block by block where tokens are routed; (b) the seven configs in
+    bfloat16 at full width one at a time (two depth cuts); (c) four
+    families served live together. Plus the kernels at the zoo's new
+    shapes against their plain versions. Returns (the zoo's kernel
+    launches, the kernel check's errors and timings)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs, timings = run_kernel_cases(_zoo_kernel_cases(), dev, gen)
+    emit("lm_zoo_kernels", max_abs_err=errs, timings=timings,
+         seconds=time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    rows = {a: _zoo_f32_one(a, get_config(a), device) for a in ZOO_ARCHS}
+    emit("lm_zoo_f32", tol=LM_TOL["float32"], tie_rtol=MOE_TIE_RTOL,
+         batch=ZOO_F32["batch"], seq=ZOO_F32["seq"],
+         prompt=ZOO_F32["prompt"], steps=ZOO_F32["steps"], rows=rows,
+         cut={a: r["cut"] for a, r in rows.items()},
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    launches = {}
+    full = {}
+    for a in ZOO_ARCHS:
+        full[a] = _zoo_full_one(a, get_config(a), device)
+        for k, v in full[a]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    emit("lm_zoo_full", rows=full, cut={a: r["cut"] for a, r in full.items()},
+         card=smi("name,power.limit"), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    live, live_launches = _zoo_live(device)
+    emit("lm_zoo_live", **live, seconds=time.perf_counter() - t0)
+    for k in ("rmsnorm", "flash_attention", "exit_head", "decode_attention",
+              "stability_score"):
+        launches[k] = launches.get(k, 0) + live_launches.get(k, 0)
+    emit("lm_zoo_phase", seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches, dict(errs=errs, timings=timings)
+
+
+# ---------------------------------------------------------------------------
 # The kernel summary line
 # ---------------------------------------------------------------------------
 
@@ -2516,7 +3286,7 @@ LM_KERNEL_ROWS = {
 
 def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
                    lm_kernels, lm_launches, decode_launches, multi_launches,
-                   multi_timings):
+                   multi_timings, zoo_launches, zoo_kernels):
     """One entry per kernel of the port's paths, with every key of the
     contract; the stability score's launches are the three serving runs',
     the simulated cells' and the fleet cells', and the LM kernels' those of
@@ -2531,11 +3301,13 @@ def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
         "replaces": "src/repro/kernels/stability_score/kernel.py:35",
         "launches": (resnet_launches + sim_launches + fleet_launches
                      + lm_launches["stability_score"]
+                     + zoo_launches["stability_score"]
                      + multi_launches["stability_score"]),
         "launches_resnet_serve": resnet_launches,
         "launches_sim": sim_launches,
         "launches_fleet": fleet_launches,
         "launches_lm_serve": lm_launches["stability_score"],
+        "launches_lm_zoo": zoo_launches["stability_score"],
         "launches_lm_multi": multi_launches["stability_score"],
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
@@ -2558,19 +3330,24 @@ def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
         t = timings[main_case]
         paths = {"lm_serve": lm_launches.get(name, 0),
                  "lm_decode": decode_launches.get(name, 0),
+                 "lm_zoo": zoo_launches.get(name, 0),
                  "lm_multi": multi_launches.get(name, 0)}
+        zoo_errs = zoo_kernels["errs"][name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(paths.values()),
             **{f"launches_{p}": n for p, n in paths.items()},
-            "max_abs_err": lm_kernels["errs"][name]["float32"],
-            "max_abs_err_bf16": lm_kernels["errs"][name]["bfloat16"],
+            "max_abs_err": max(lm_kernels["errs"][name]["float32"],
+                               zoo_errs["float32"]),
+            "max_abs_err_bf16": max(lm_kernels["errs"][name]["bfloat16"],
+                                    zoo_errs["bfloat16"]),
             "case": main_case, "shape": t["shape"], "dtype": t["dtype"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             **{k: t[k] for k in ("path", "cold_ms") if k in t},
-            "cases": {**timings, **multi_timings.get(name, {})},
+            "cases": {**timings, **zoo_kernels["timings"][name],
+                      **multi_timings.get(name, {})},
         })
         f32 = timings.get(f"{main_case}/float32")
         if f32 is not None:
@@ -2612,10 +3389,12 @@ def main() -> int:
     decode_launches = phase_lm_decode(served, "cuda")
     del served
     torch.cuda.empty_cache()
+    zoo_launches, zoo_kernels = phase_lm_zoo("cuda")
     multi_launches, multi_timings = phase_lm_multi("cuda")
     print(json.dumps({"kernels": kernel_summary(
         kernel, resnet_launches, sim_launches, fleet_launches, lm_kernels,
-        lm_launches, decode_launches, multi_launches, multi_timings)}),
+        lm_launches, decode_launches, multi_launches, multi_timings,
+        zoo_launches, zoo_kernels)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

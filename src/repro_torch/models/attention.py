@@ -13,7 +13,15 @@ The attention itself goes through the flash-attention kernel's wrapper
 Decode (the cache branch) takes one token against a per-layer cache
 ``{"k": [B, Smax, K, Dh], "v": [B, Smax, K, Dh], "len": [B]}`` and goes
 through the decode-attention kernel's wrapper, with ``[B, K, Smax, Dh]``
-views of the cache. MLA waits for a later slice.
+views of the cache.
+
+MLA (DeepSeek-V3's multi-head latent attention) caches the compressed
+latent ``{"c_kv": [B, Smax, d_c], "k_pe": [B, Smax, r], "len": [B]}``. Its
+q/k head dim (nope + rope = 192) differs from its v head dim (128), which
+no kernel of the port takes, so its attention is the plain ``_sdpa`` (the
+reference computes it in jnp); its two latent norms are RMSNorm kernel
+launches. ``mla_attention_absorbed`` is the absorbed-matrix decode, in
+plain torch ops.
 """
 
 from __future__ import annotations
@@ -29,12 +37,14 @@ from repro_torch.kernels.flash_attention.ref import sdpa_plain as _sdpa
 from repro_torch.models.common import (
     make_param,
     prefix_rotation,
+    rms_norm,
     rms_norm_pair,
     rope_rotation,
     rotate,
 )
 
-__all__ = ["AttentionConfig", "init_attention", "attention", "_sdpa"]
+__all__ = ["AttentionConfig", "MLAConfig", "attention", "init_attention",
+           "init_mla", "mla_attention", "mla_attention_absorbed", "_sdpa"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,12 +128,175 @@ def _decode(params, q, k, v, cfg: AttentionConfig, cache: dict
     q = rotate(q, rotation)
     k = rotate(k, rotation)
     k_all, v_all = cache["k"], cache["v"]             # [B, Smax, K, Dh]
-    # row 0's length on the device (no host sync), clamped into the cache
-    idx = cache_len[:1].clamp(0, k_all.shape[1] - 1).long()
-    k_all.index_copy_(1, idx, k.to(k_all.dtype))
-    v_all.index_copy_(1, idx, v.to(v_all.dtype))
+    _write_at_row0(cache_len, (k_all, k), (v_all, v))
     new_len = cache_len + 1
     out = decode_attention(q[:, 0].to(k_all.dtype), k_all.transpose(1, 2),
                            v_all.transpose(1, 2), new_len)
     out = out.to(q.dtype).reshape(b, 1, h * dh) @ params["wo"]
     return out, {"k": k_all, "v": v_all, "len": new_len}
+
+
+def _write_at_row0(cache_len: torch.Tensor, *pairs) -> None:
+    """Write each ``(buffer [B, Smax, ...], new [B, 1, ...])`` pair at row
+    0's length in every row (all rows share one length in the serving
+    runtime), on the device with no host sync; the start is clamped to
+    ``Smax - 1`` as ``jax.lax.dynamic_update_slice`` clamps it."""
+    for buf, new in pairs:
+        idx = cache_len[:1].clamp(0, buf.shape[1] - 1).long()
+        buf.index_copy_(1, idx, new.to(buf.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    num_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    causal: bool = True
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+def init_mla(generator: torch.Generator, cfg: MLAConfig,
+             dtype: torch.dtype = torch.float32
+             ) -> Dict[str, torch.nn.Parameter]:
+    d, h = cfg.d_model, cfg.num_heads
+    return {
+        # low-rank query path: d -> q_lora -> heads * (nope + rope)
+        "wq_a": make_param((d, cfg.q_lora_rank), generator, dtype=dtype),
+        "q_a_norm": make_param((cfg.q_lora_rank,), generator, init="ones",
+                               dtype=dtype),
+        "wq_b": make_param((cfg.q_lora_rank, h * cfg.qk_head_dim),
+                           generator, dtype=dtype),
+        # compressed kv path: d -> kv_lora (+ the shared rope key)
+        "wkv_a": make_param((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                            generator, dtype=dtype),
+        "kv_a_norm": make_param((cfg.kv_lora_rank,), generator, init="ones",
+                                dtype=dtype),
+        "wkv_b": make_param(
+            (cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
+            generator, dtype=dtype),
+        "wo": make_param((h * cfg.v_head_dim, d), generator, dtype=dtype),
+    }
+
+
+def _mla_q(params, x: torch.Tensor, cfg: MLAConfig, rotation
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope ``[B, S, H, dn]``, rotated q_pe ``[B, S, H, r]``)."""
+    b, s, _ = x.shape
+    q = rms_norm(x @ params["wq_a"], params["q_a_norm"]) @ params["wq_b"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.qk_head_dim)
+    q_nope, q_pe = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], -1)
+    return q_nope, rotate(q_pe, rotation)
+
+
+def _mla_latent(params, x: torch.Tensor, cfg: MLAConfig, rotation
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(normed latent c_kv ``[B, S, d_c]``, rotated k_pe ``[B, S, r]``)."""
+    c_kv, k_pe = (x @ params["wkv_a"]).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_head_dim], -1)
+    c_kv = rms_norm(c_kv, params["kv_a_norm"])
+    return c_kv, rotate(k_pe[:, :, None, :], rotation)[:, :, 0, :]
+
+
+def _mla_expand(params, c_kv: torch.Tensor, k_pe: torch.Tensor,
+                cfg: MLAConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-head (k ``[B, S, H, dn + r]``, v ``[B, S, H, dv]``) from the
+    latent and the shared rope key."""
+    b, s, _ = c_kv.shape
+    h = cfg.num_heads
+    kv = (c_kv @ params["wkv_b"]).reshape(
+        b, s, h, cfg.qk_nope_head_dim + cfg.v_head_dim)
+    k_nope, v = kv.split([cfg.qk_nope_head_dim, cfg.v_head_dim], -1)
+    k_pe = k_pe[:, :, None, :].expand(b, s, h, cfg.qk_rope_head_dim)
+    return torch.cat([k_nope, k_pe], -1), v
+
+
+def mla_attention(params, x: torch.Tensor, cfg: MLAConfig,
+                  cache: Optional[dict] = None, position=None
+                  ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """MLA forward (reference ``attention.py:197``). Without a cache,
+    attention over the whole of ``x`` (the prefill hands back ``{"c_kv",
+    "k_pe", "len"}`` when ``position`` is given). With one, ``x`` is one
+    token: its latent and rope key are written at row 0's length in place,
+    the cached latent is expanded into per-head K/V, and the token attends
+    over ``len + 1`` positions."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    if cache is None:
+        rotation = prefix_rotation(s, cfg.qk_rope_head_dim, cfg.rope_theta,
+                                   x.device)
+        q_nope, q_pe = _mla_q(params, x, cfg, rotation)
+        c_kv, k_pe = _mla_latent(params, x, cfg, rotation)
+        k, v = _mla_expand(params, c_kv, k_pe, cfg)
+        out = _sdpa(torch.cat([q_nope, q_pe], -1), k, v, cfg.causal)
+        new_cache = None
+        if position is not None:
+            new_cache = {"c_kv": c_kv, "k_pe": k_pe,
+                         "len": torch.full((b,), s, dtype=torch.int32,
+                                           device=x.device)}
+    else:
+        if s != 1:
+            raise ValueError(f"decode takes one token per row, got {s}")
+        cache_len = cache["len"]
+        rotation = rope_rotation(cache_len[:, None], cfg.qk_rope_head_dim,
+                                 cfg.rope_theta)
+        q_nope, q_pe = _mla_q(params, x, cfg, rotation)
+        c_new, pe_new = _mla_latent(params, x, cfg, rotation)
+        c_all, pe_all = cache["c_kv"], cache["k_pe"]
+        _write_at_row0(cache_len, (c_all, c_new), (pe_all, pe_new))
+        k, v = _mla_expand(params, c_all.to(x.dtype), pe_all.to(x.dtype),
+                           cfg)
+        out = _sdpa(torch.cat([q_nope, q_pe], -1), k, v, causal=False,
+                    kv_len=cache_len + 1)
+        new_cache = {"c_kv": c_all, "k_pe": pe_all, "len": cache_len + 1}
+    return out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"], new_cache
+
+
+def mla_attention_absorbed(params, x: torch.Tensor, cfg: MLAConfig,
+                           cache: dict) -> Tuple[torch.Tensor, dict]:
+    """Absorbed-matrix MLA decode (reference ``attention.py:244``): the
+    nope-query goes through W_k into the latent, scores are taken against
+    the cached latent directly, and the context is expanded through W_v for
+    the one token. The same function as :func:`mla_attention`'s decode;
+    the cache is written in place as there."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"decode takes one token per row, got {s}")
+    h = cfg.num_heads
+    dn, dv, dc = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    cache_len = cache["len"]
+    rotation = rope_rotation(cache_len[:, None], cfg.qk_rope_head_dim,
+                             cfg.rope_theta)
+    q_nope, q_pe = _mla_q(params, x, cfg, rotation)
+    c_new, pe_new = _mla_latent(params, x, cfg, rotation)
+    c_all, pe_all = cache["c_kv"], cache["k_pe"]
+    _write_at_row0(cache_len, (c_all, c_new), (pe_all, pe_new))
+    c, pe = c_all.to(x.dtype), pe_all.to(x.dtype)
+
+    wkv_b = params["wkv_b"].reshape(dc, h, dn + dv)
+    w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]
+    q_eff = torch.einsum("bshd,chd->bshc", q_nope, w_k)       # [B,1,H,dc]
+    scores = (torch.einsum("bshc,btc->bhst", q_eff, c)
+              + torch.einsum("bshr,btr->bhst", q_pe, pe)).to(torch.float32)
+    scores = scores * (1.0 / torch.sqrt(torch.tensor(
+        float(cfg.qk_head_dim)))).item()
+    valid = (torch.arange(c.shape[1], device=x.device)[None, :]
+             < (cache_len + 1)[:, None])
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_latent = torch.einsum("bhst,btc->bshc", probs, c)       # [B,1,H,dc]
+    out = torch.einsum("bshc,chd->bshd", o_latent, w_v)       # [B,1,H,dv]
+    out = out.reshape(b, s, h * dv) @ params["wo"]
+    return out, {"c_kv": c_all, "k_pe": pe_all, "len": cache_len + 1}

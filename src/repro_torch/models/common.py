@@ -11,16 +11,21 @@ distribution is the same.
 
 ``rms_norm`` and ``rms_norm_pair`` go through the RMSNorm kernel's wrappers:
 the plain version on a CPU tensor, the CUDA kernel on a card tensor.
+
+A block's parameters are a nested dict in the reference; ``ParamTree``
+keeps that nesting as a module, so the state dict's keys are the
+reference's paths.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_pair
 
@@ -64,6 +69,41 @@ def make_param(shape: Sequence[int], generator: torch.Generator,
     else:
         raise ValueError(f"unknown init {init!r}")
     return torch.nn.Parameter(value, requires_grad=False)
+
+
+def make_stacked_param(shape: Sequence[int], generator: torch.Generator,
+                       dtype: torch.dtype = torch.float32
+                       ) -> torch.nn.Parameter:
+    """``make_param(shape, generator, dtype=dtype)`` for a stack of experts
+    ``[E, ...]``, drawn one expert at a time: the float32 draw of one
+    slice is the only temporary (a whole DeepSeek-V3 expert stack in
+    float32 would be 15 GB). The scale is the reference's fan-in rule on
+    the whole shape, ``1/sqrt(E)``."""
+    shape = tuple(int(s) for s in shape)
+    scale = 1.0 / math.sqrt(max(shape[0], 1))
+    value = torch.empty(shape, dtype=dtype, device=generator.device)
+    for e in range(shape[0]):
+        value[e] = truncated_normal(shape[1:], generator, scale)
+    return torch.nn.Parameter(value, requires_grad=False)
+
+
+class ParamTree(nn.Module):
+    """A nested dict of parameters as a module: a leaf is a parameter, a
+    sub-dict a submodule; ``tree[key]`` and ``key in tree`` read either."""
+
+    def __init__(self, tree: Dict[str, object]):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            else:
+                self.register_parameter(key, value)
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
 
 
 # ---------------------------------------------------------------------------

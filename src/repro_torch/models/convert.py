@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.resnet import ResNetConfig
-from repro_torch.models.transformer import LMConfig
+from repro_torch.models.transformer import LMConfig, segment_sizes
 
 
 def _tensor(a) -> torch.Tensor:
@@ -68,37 +68,52 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield f"{prefix}{key}", value
 
 
+def _unstack(sd: Dict[str, torch.Tensor], prefix: str, tree, n: int,
+             what: str) -> None:
+    """Each stacked leaf ``path [n, ...]`` of ``tree`` becomes
+    ``{prefix}.{l}.{path}`` for l < n."""
+    for path, stacked in _flatten(tree):
+        stacked = np.asarray(stacked)
+        if stacked.shape[0] != n:
+            raise ValueError(f"{what} {path} stacks {stacked.shape[0]} "
+                             f"layers, the config {n}")
+        for layer in range(n):
+            sd[f"{prefix}.{layer}.{path}"] = _tensor(stacked[layer])
+
+
 def lm_params_from_jax(values_np: Dict[str, Any],
                        cfg: LMConfig) -> Dict[str, torch.Tensor]:
-    """The reference DecoderLM's value tree (numpy leaves; each segment's
-    leaves stacked on a leading layers axis) -> the state dict of
-    :class:`repro_torch.models.transformer.DecoderLM`.
+    """The reference LM's value tree (numpy leaves; each segment's leaves
+    stacked on a leading layers axis) -> the state dict of the port's model
+    of the same family (``repro_torch.models.build_model(cfg)``).
 
-    Segment ``i``'s stacked leaf ``attn.wq [n, D, H*Dh]`` becomes
-    ``segments.{i}.{l}.attn.wq`` for each of its n layers; ``exit_norms`` is
-    a list in both; ``lm_head`` exists only when the embeddings are untied.
-    Matrices keep their ``[in, out]`` layout. Leaves come back float32;
-    ``load_state_dict`` casts them to the model's dtype.
+    Segment ``i``'s stacked leaf ``path [n, ...]`` becomes
+    ``segments.{i}.{l}.{path}`` for each of its n blocks, whatever the
+    family's tree below: ``attn.wq``; the MoE's stacked experts
+    ``ffn.we_gate`` and ``ffn.shared.w_up``; MLA's ``attn.wq_a ... wo``;
+    Jamba's superblock sublayers ``sub{j}.mixer.a_log``; RWKV's
+    ``tm.maa``/``cm.w_k``; the encoder-decoder's ``xattn.wq``, with its
+    ``encoder`` stack as ``encoder.{l}.{path}`` and ``enc_norm``.
+    ``exit_norms`` is a list in both; ``lm_head`` exists only when the
+    embeddings are untied. Matrices keep their ``[in, out]`` layout. Leaves
+    come back float32; ``load_state_dict`` casts them to the model's
+    dtype.
     """
     sd: Dict[str, torch.Tensor] = {"embed": _tensor(values_np["embed"])}
     for e, gain in enumerate(values_np["exit_norms"]):
         sd[f"exit_norms.{e}"] = _tensor(gain)
     if not cfg.tie_embeddings:
         sd["lm_head"] = _tensor(values_np["lm_head"])
-    segs = cfg.segments()
-    if len(values_np["segments"]) != len(segs):
+    if cfg.family == "encdec":
+        sd["enc_norm"] = _tensor(values_np["enc_norm"])
+        _unstack(sd, "encoder", values_np["encoder"], cfg.num_encoder_layers,
+                 "encoder")
+    sizes = segment_sizes(cfg)
+    if len(values_np["segments"]) != len(sizes):
         raise ValueError(f"{len(values_np['segments'])} segments, the config "
-                         f"{len(segs)}")
-    for i, ((_, start, end), seg) in enumerate(zip(segs,
-                                                  values_np["segments"])):
-        for path, stacked in _flatten(seg):
-            stacked = np.asarray(stacked)
-            if stacked.shape[0] != end - start:
-                raise ValueError(f"segment {i} {path} stacks "
-                                 f"{stacked.shape[0]} layers, the config "
-                                 f"{end - start}")
-            for layer in range(end - start):
-                sd[f"segments.{i}.{layer}.{path}"] = _tensor(stacked[layer])
+                         f"{len(sizes)}")
+    for i, (n, seg) in enumerate(zip(sizes, values_np["segments"])):
+        _unstack(sd, f"segments.{i}", seg, n, f"segment {i}")
     return sd
 
 
@@ -112,23 +127,40 @@ def _state_tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+# the leaf sets of one layer's cache: dense attention, MLA, the
+# encoder-decoder's cross-attention K/V, a Mamba state, RWKV's time mix
+# and channel mix
+_LAYER_CACHES = ({"k", "v", "len"}, {"c_kv", "k_pe", "len"}, {"k", "v"},
+                 {"h", "conv"}, {"shift", "wkv"}, {"shift"})
+
+
+def _cache_tree(tree, device: torch.device):
+    if not any(isinstance(v, dict) for v in tree.values()):
+        if set(tree) not in _LAYER_CACHES:
+            raise ValueError(
+                f"a layer cache holds k, v and len (or c_kv, k_pe and len; "
+                f"k and v; h and conv; shift and wkv; shift), not "
+                f"{sorted(tree)}")
+        out = {key: _state_tensor(value, device)
+               for key, value in tree.items()}
+        if "len" in out:
+            out["len"] = out["len"].to(torch.int32)
+        return out
+    return {key: _cache_tree(value, device) for key, value in tree.items()}
+
+
 def lm_cache_from_jax(cache_np: Dict[str, Any],
                       device: DeviceLike) -> Dict[str, Any]:
-    """The reference DecoderLM's decode cache (numpy leaves) -> the port's:
-    ``{"segments": [{"k", "v" [n, B, Smax, K, Dh], "len" [n, B] int32}]}``
-    with the leaves' dtypes, on ``device`` (the card unless the caller
-    passes ``"cpu"``). The state counterpart of :func:`lm_params_from_jax`:
-    both models can start from one cache, rows of different lengths
+    """The reference LM's decode cache (numpy leaves) -> the port's, for
+    every family: ``{"segments": [per segment, the same nested dict]}``
+    with the leaves' dtypes (``len`` int32), on ``device`` (the card unless
+    the caller passes ``"cpu"``). A segment holds the dense ``k``/``v``/
+    ``len``, MLA's ``c_kv``/``k_pe``/``len``, Jamba's ``sub{j}`` (attention
+    k/v/len or Mamba ``h``/``conv``), RWKV's ``tm`` {``shift``, ``wkv``}
+    and ``cm`` {``shift``}, or the encoder-decoder's ``self`` and
+    ``enc_kv``. The state counterpart of :func:`lm_params_from_jax`: both
+    models can start from one cache, rows of different lengths
     included."""
     device = resolve_device(device)
-    segments = []
-    for seg in cache_np["segments"]:
-        if set(seg) != {"k", "v", "len"}:
-            raise ValueError(f"a dense segment cache holds k, v and len, "
-                             f"not {sorted(seg)}")
-        segments.append({
-            "k": _state_tensor(seg["k"], device),
-            "v": _state_tensor(seg["v"], device),
-            "len": _state_tensor(seg["len"], device).to(torch.int32),
-        })
-    return {"segments": segments}
+    return {"segments": [_cache_tree(seg, device)
+                         for seg in cache_np["segments"]]}

@@ -1,5 +1,6 @@
 """Decoder-only LM with scheduler-controlled early exits (reference
-``src/repro/models/transformer.py``), dense GQA family.
+``src/repro/models/transformer.py``): the dense GQA family and the MoE
+family, with MLA where the config asks for it.
 
 The decoder stack is split into *segments* at the exit boundaries; each
 segment is an ``nn.ModuleList`` of identical pre-norm blocks, run by a
@@ -19,11 +20,16 @@ Four ways out of the trunk:
 * ``decode_step`` — one token against the cache of ``init_cache`` (the
   reference's), written in place.
 
-On the card the norms, the attention (prefill and decode) and the exit head
-are the port's CUDA kernels; the large products (Q/K/V/O, the MLP, the
+On the card the norms, the GQA attention (prefill and decode) and the exit
+head are the port's CUDA kernels; the large products (Q/K/V/O, the MLP, the
 logits of ``forward_exit``/``prefill``/``decode_step``) stay
-``torch.matmul``, as the reference leaves them to XLA. The MoE and MLA
-families wait for later slices and raise ``NotImplementedError``.
+``torch.matmul``, as the reference leaves them to XLA, and so do the MoE's
+einsums and MLA's attention (see ``moe.py`` and ``attention.py``).
+
+``EarlyExitLM`` holds what every family shares (the embedding, the exit
+norms, the unembedding, ``forward_exit``, ``prefill`` and the served
+quantum ``exit_decision``); a family gives its ``trunk``, ``decode_step``
+and ``init_cache``.
 """
 
 from __future__ import annotations
@@ -38,11 +44,27 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.exit_head.ops import exit_head
 from repro_torch.models.attention import (
     AttentionConfig,
+    MLAConfig,
     attention,
     init_attention,
+    init_mla,
+    mla_attention,
+    mla_attention_absorbed,
 )
-from repro_torch.models.common import make_param, mask_padded_vocab, rms_norm
-from repro_torch.models.moe import MLPConfig, init_mlp, mlp
+from repro_torch.models.common import (
+    ParamTree,
+    make_param,
+    mask_padded_vocab,
+    rms_norm,
+)
+from repro_torch.models.moe import (
+    MLPConfig,
+    MoEConfig,
+    init_mlp,
+    init_moe,
+    mlp,
+    moe,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,9 +175,33 @@ class LMConfig:
             qk_norm=self.qk_norm,
         )
 
+    def mla_config(self) -> MLAConfig:
+        return MLAConfig(
+            d_model=self.d_model,
+            num_heads=self.num_heads,
+            q_lora_rank=self.q_lora_rank,
+            kv_lora_rank=self.kv_lora_rank,
+            qk_nope_head_dim=self.qk_nope_head_dim,
+            qk_rope_head_dim=self.qk_rope_head_dim,
+            v_head_dim=self.v_head_dim,
+            rope_theta=self.rope_theta,
+        )
+
     def mlp_config(self) -> MLPConfig:
         return MLPConfig(d_model=self.d_model, d_ff=self.d_ff,
                          gated=self.mlp_gated)
+
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model,
+            d_ff_expert=self.d_ff_expert,
+            num_experts=self.num_experts,
+            top_k=self.top_k,
+            num_shared=self.num_shared_experts,
+            router_type=self.moe_router,
+            group_size=self.moe_group_size,
+            capacity_factor=self.moe_capacity_factor,
+        )
 
     # -- segment plan --------------------------------------------------------
 
@@ -183,62 +229,124 @@ class LMConfig:
         raise ValueError(f"exit {exit_idx} not on a segment boundary")
 
 
+def segment_sizes(cfg: LMConfig) -> List[int]:
+    """Stacked blocks per exit segment of ``cfg``'s family: layers for the
+    dense, MoE, RWKV and encoder-decoder families, superblocks for Jamba."""
+    if cfg.family == "jamba":
+        bounds = [0] + [e // cfg.attn_period for e in cfg.exits]
+    elif cfg.family in ("rwkv", "encdec"):
+        bounds = [0] + list(cfg.exits)
+    else:
+        return [end - start for _, start, end in cfg.segments()]
+    return [b - a for a, b in zip(bounds, bounds[1:])]
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 
 class Block(nn.Module):
-    """One pre-norm dense block: norms, attention and MLP parameters."""
+    """One pre-norm block's parameters: norms, attention (GQA or MLA) and
+    the feed-forward of its kind (``"dense"``: the MLP, ``"moe"``: the
+    MoE)."""
 
-    def __init__(self, cfg: LMConfig, generator: torch.Generator):
+    def __init__(self, cfg: LMConfig, generator: torch.Generator,
+                 kind: str = "dense"):
         super().__init__()
         dt = cfg.dtype
+        self.kind = kind
         self.norm1 = make_param((cfg.d_model,), generator, init="ones",
                                 dtype=dt)
         self.norm2 = make_param((cfg.d_model,), generator, init="ones",
                                 dtype=dt)
-        self.attn = nn.ParameterDict(init_attention(generator,
-                                                    cfg.attn_config(), dt))
-        self.ffn = nn.ParameterDict(init_mlp(generator, cfg.mlp_config(), dt))
+        self.attn = nn.ParameterDict(
+            init_mla(generator, cfg.mla_config(), dt) if cfg.mla
+            else init_attention(generator, cfg.attn_config(), dt))
+        self.ffn = ParamTree(
+            init_moe(generator, cfg.moe_config(), dt) if kind == "moe"
+            else init_mlp(generator, cfg.mlp_config(), dt))
 
 
 def _block_apply(blk: Block, h: torch.Tensor, cfg: LMConfig,
                  make_cache: bool, cache: Optional[dict] = None
-                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+                 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """One pre-norm block, decoding against ``cache`` when one is given.
-    Returns (h, new_cache)."""
+    Returns (h, new_cache, the MoE aux loss; 0 for a dense block)."""
     attn_in = rms_norm(h, blk.norm1, cfg.norm_eps)
-    attn_out, new_cache = attention(
-        blk.attn, attn_in, cfg.attn_config(), cache=cache,
-        position=0 if make_cache else None)
+    position = 0 if make_cache else None
+    if cfg.mla and cfg.mla_absorbed_decode and cache is not None:
+        attn_out, new_cache = mla_attention_absorbed(
+            blk.attn, attn_in, cfg.mla_config(), cache=cache)
+    elif cfg.mla:
+        attn_out, new_cache = mla_attention(
+            blk.attn, attn_in, cfg.mla_config(), cache=cache,
+            position=position)
+    else:
+        attn_out, new_cache = attention(
+            blk.attn, attn_in, cfg.attn_config(), cache=cache,
+            position=position)
     h = h + attn_out
     ffn_in = rms_norm(h, blk.norm2, cfg.norm_eps)
-    return h + mlp(blk.ffn, ffn_in, cfg.mlp_config()), new_cache
+    if blk.kind == "moe":
+        ffn_out, aux = moe(blk.ffn, ffn_in, cfg.moe_config())
+    else:
+        ffn_out = mlp(blk.ffn, ffn_in, cfg.mlp_config())
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ffn_out, new_cache, aux
+
+
+def stack_caches(caches: List[dict], into: Optional[dict] = None) -> dict:
+    """Per-layer caches (nested dicts of tensors) stacked on a leading
+    layers axis, as the reference's scan stacks them. Where every layer's
+    tensor is its view of the stacked ``into`` (a decode step wrote it in
+    place), ``into``'s tensor comes back as it is, without a copy."""
+    out = {}
+    for key, first in caches[0].items():
+        parts = [c[key] for c in caches]
+        held = None if into is None else into[key]
+        if isinstance(first, dict):
+            out[key] = stack_caches(parts, held)
+        elif held is not None and all(
+                p.data_ptr() == held[i].data_ptr()
+                and p.shape == held[i].shape for i, p in enumerate(parts)):
+            out[key] = held
+        else:
+            out[key] = torch.stack(parts)
+    return out
+
+
+def layer_cache(caches: dict, layer: int) -> dict:
+    """Layer ``layer``'s views of a stacked cache: writes into them land in
+    the stack."""
+    return {key: (layer_cache(value, layer) if isinstance(value, dict)
+                  else value[layer])
+            for key, value in caches.items()}
 
 
 # ---------------------------------------------------------------------------
-# The model
+# The models
 # ---------------------------------------------------------------------------
 
 
-class DecoderLM(nn.Module):
-    """Early-exit decoder LM, dense family.
+class EarlyExitLM(nn.Module):
+    """What every early-exit LM family shares: the embedding, one RMSNorm
+    gain per exit, the shared unembedding and the ways out of the trunk.
 
     Weights are drawn from ``generator`` (default: seed 0 on ``device``) at
     the reference's scales, directly on ``device`` (the card unless the
-    caller passes ``"cpu"``), in ``cfg.dtype``. Parameters are frozen: this
-    slice serves and does not train.
+    caller passes ``"cpu"``), in ``cfg.dtype``. Parameters are frozen: the
+    port serves and does not train. A family sets its parameters up in
+    ``__init__`` (``_draw_embedding`` and ``_draw_unembedding`` draw the
+    shared ones) and defines ``trunk(batch, exit_idx, make_cache=False)``:
+    the layers up to exit ``exit_idx``, returning (h ``[B, S, D]``, the
+    per-segment caches or None without ``make_cache``).
     """
 
     def __init__(self, cfg: LMConfig,
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None):
         super().__init__()
-        if cfg.family != "dense" or cfg.mla:
-            raise NotImplementedError(
-                f"family {cfg.family!r}{' with MLA' if cfg.mla else ''} is "
-                f"not ported yet; this slice carries the dense family")
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -246,21 +354,25 @@ class DecoderLM(nn.Module):
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {device}")
         self.cfg = cfg
-        dt = cfg.dtype
-        self.embed = make_param((cfg.vocab_padded, cfg.d_model), generator,
-                                init="embedding", dtype=dt)
-        self.exit_norms = nn.ParameterList(
-            make_param((cfg.d_model,), generator, init="ones", dtype=dt)
-            for _ in range(cfg.num_exits))
-        self.segments = nn.ModuleList(
-            nn.ModuleList(Block(cfg, generator) for _ in range(end - start))
-            for _, start, end in cfg.segments())
-        if not cfg.tie_embeddings:
-            self.lm_head = make_param((cfg.d_model, cfg.vocab_padded),
-                                      generator, dtype=dt)
+        self._generator = generator
         self._head_w: Optional[torch.Tensor] = None
         self.register_load_state_dict_post_hook(
             lambda module, _keys: module._drop_head_copy())
+
+    def _draw_embedding(self) -> None:
+        cfg, gen = self.cfg, self._generator
+        self.embed = make_param((cfg.vocab_padded, cfg.d_model), gen,
+                                init="embedding", dtype=cfg.dtype)
+        self.exit_norms = nn.ParameterList(
+            make_param((cfg.d_model,), gen, init="ones", dtype=cfg.dtype)
+            for _ in range(cfg.num_exits))
+
+    def _draw_unembedding(self) -> None:
+        cfg = self.cfg
+        if not cfg.tie_embeddings:
+            self.lm_head = make_param((cfg.d_model, cfg.vocab_padded),
+                                      self._generator, dtype=cfg.dtype)
+        del self._generator
 
     def _drop_head_copy(self) -> None:
         self._head_w = None
@@ -272,8 +384,6 @@ class DecoderLM(nn.Module):
     # -- helpers -----------------------------------------------------------
 
     def _embed(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        if "embeds" in batch:  # modality frontend stub output (vlm/audio)
-            return batch["embeds"].to(self.cfg.dtype)
         return self.embed[batch["tokens"]]
 
     def _unembedding(self) -> torch.Tensor:
@@ -302,47 +412,6 @@ class DecoderLM(nn.Module):
         logits = (h @ self._unembedding().to(h.dtype)).to(torch.float32)
         return mask_padded_vocab(logits, cfg.vocab_size)
 
-    def _run_segment(self, seg: int, h: torch.Tensor, make_cache: bool,
-                     caches: Optional[dict] = None
-                     ) -> Tuple[torch.Tensor, Optional[dict]]:
-        """Run one segment's blocks in order. With ``make_cache`` the
-        per-layer caches come back stacked on a leading layers axis, as the
-        reference's scan stacks them. With ``caches`` (decode), layer ``l``
-        gets the views ``k[l]``, ``v[l]``, ``len[l]`` of the stacked
-        ``[n, B, Smax, K, Dh]`` / ``[n, B]`` cache, so its in-place writes
-        land in the stack; the segment's k/v come back as those same
-        tensors, with the advanced lengths stacked."""
-        blocks = self.segments[seg]
-        if caches is not None and caches["k"].shape[0] != len(blocks):
-            raise ValueError(f"segment {seg} cache stacks "
-                             f"{caches['k'].shape[0]} layers, the model "
-                             f"{len(blocks)}")
-        new_caches = []
-        for layer, blk in enumerate(blocks):
-            layer_cache = None if caches is None else {
-                key: caches[key][layer] for key in ("k", "v", "len")}
-            h, cache = _block_apply(blk, h, self.cfg, make_cache,
-                                    layer_cache)
-            new_caches.append(cache)
-        if caches is not None:
-            return h, {"k": caches["k"], "v": caches["v"],
-                       "len": torch.stack([c["len"] for c in new_caches])}
-        if not make_cache:
-            return h, None
-        return h, {key: torch.stack([c[key] for c in new_caches])
-                   for key in ("k", "v", "len")}
-
-    def trunk(self, batch: Dict[str, torch.Tensor], exit_idx: int,
-              make_cache: bool = False):
-        """Embed and run the segments up to exit ``exit_idx``; returns
-        (h ``[B, S, D]``, per-segment caches or None)."""
-        h = self._embed(batch)
-        caches = []
-        for i in range(self.cfg.exit_segment_index(exit_idx)):
-            h, seg_cache = self._run_segment(i, h, make_cache)
-            caches.append(seg_cache)
-        return h, caches if make_cache else None
-
     # -- serving -----------------------------------------------------------
 
     def forward_exit(self, batch: Dict[str, torch.Tensor],
@@ -354,7 +423,7 @@ class DecoderLM(nn.Module):
 
     def prefill(self, batch: Dict[str, torch.Tensor], exit_idx: int):
         """Prefill through exit ``exit_idx``: logits for the last position
-        ``[B, 1, V_padded]`` + per-segment stacked KV caches (sized to the
+        ``[B, 1, V_padded]`` + the per-segment caches (sized to the
         prompt)."""
         h, caches = self.trunk(batch, exit_idx, make_cache=True)
         logits = self._head(h[:, -1:, :], exit_idx)
@@ -371,6 +440,70 @@ class DecoderLM(nn.Module):
         return exit_head(h[:, -1, :].contiguous(), self.exit_norms[exit_idx],
                          self.exit_head_weight(), eps=self.cfg.norm_eps)
 
+    def _check_cache(self, cache: dict, n_segs: int, exit_idx: int) -> None:
+        if len(cache["segments"]) < n_segs:
+            raise ValueError(f"the cache holds {len(cache['segments'])} "
+                             f"segments, exit {exit_idx} runs {n_segs}")
+
+
+class DecoderLM(EarlyExitLM):
+    """Early-exit decoder LM, dense and MoE families (GQA or MLA)."""
+
+    def __init__(self, cfg: LMConfig,
+                 generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None):
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"DecoderLM serves the dense and moe families, "
+                             f"not {cfg.family!r}")
+        super().__init__(cfg, generator, device)
+        self._draw_embedding()
+        self.segments = nn.ModuleList(
+            nn.ModuleList(Block(cfg, self._generator, kind)
+                          for _ in range(end - start))
+            for kind, start, end in cfg.segments())
+        self._draw_unembedding()
+
+    def _embed(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if "embeds" in batch:  # modality frontend stub output (vlm/audio)
+            return batch["embeds"].to(self.cfg.dtype)
+        return self.embed[batch["tokens"]]
+
+    def _run_segment(self, seg: int, h: torch.Tensor, make_cache: bool,
+                     caches: Optional[dict] = None
+                     ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """Run one segment's blocks in order. With ``make_cache`` the
+        per-layer caches come back stacked on a leading layers axis, as the
+        reference's scan stacks them. With ``caches`` (decode), layer ``l``
+        gets the views ``[l]`` of the stacked ``[n, B, Smax, ...]`` /
+        ``[n, B]`` cache, so its in-place writes land in the stack; the
+        segment's buffers come back as those same tensors, with the
+        advanced lengths stacked."""
+        blocks = self.segments[seg]
+        if caches is not None and caches["len"].shape[0] != len(blocks):
+            raise ValueError(f"segment {seg} cache stacks "
+                             f"{caches['len'].shape[0]} layers, the model "
+                             f"{len(blocks)}")
+        new_caches = []
+        for layer, blk in enumerate(blocks):
+            h, cache, _ = _block_apply(
+                blk, h, self.cfg, make_cache,
+                None if caches is None else layer_cache(caches, layer))
+            new_caches.append(cache)
+        if caches is None and not make_cache:
+            return h, None
+        return h, stack_caches(new_caches, caches)
+
+    def trunk(self, batch: Dict[str, torch.Tensor], exit_idx: int,
+              make_cache: bool = False):
+        """Embed and run the segments up to exit ``exit_idx``; returns
+        (h ``[B, S, D]``, per-segment caches or None)."""
+        h = self._embed(batch)
+        caches = []
+        for i in range(self.cfg.exit_segment_index(exit_idx)):
+            h, seg_cache = self._run_segment(i, h, make_cache)
+            caches.append(seg_cache)
+        return h, caches if make_cache else None
+
     def decode_step(self, token: torch.Tensor, cache: dict, exit_idx: int
                     ) -> Tuple[torch.Tensor, dict]:
         """One decode step through exit ``exit_idx``: token ``[B, 1]``
@@ -379,17 +512,15 @@ class DecoderLM(nn.Module):
         per-layer caches). Returns (float32 logits ``[B, 1, V_padded]``,
         the new cache).
 
-        The k/v of the step are written into the cache's tensors in place;
-        the returned cache holds those same tensors and new lengths (the
-        reference returns a new tree and donates the old one under
-        ``jit``)."""
+        The step's k/v (MLA: latent and rope key) are written into the
+        cache's tensors in place; the returned cache holds those same
+        tensors and new lengths (the reference returns a new tree and
+        donates the old one under ``jit``)."""
         cfg = self.cfg
         batch = {"embeds": token} if token.ndim == 3 else {"tokens": token}
         h = self._embed(batch)
         n_segs = cfg.exit_segment_index(exit_idx)
-        if len(cache["segments"]) < n_segs:
-            raise ValueError(f"the cache holds {len(cache['segments'])} "
-                             f"segments, exit {exit_idx} runs {n_segs}")
+        self._check_cache(cache, n_segs, exit_idx)
         new_caches = []
         for i in range(n_segs):
             h, seg_cache = self._run_segment(i, h, False,
@@ -399,22 +530,29 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, batch_size: int, max_len: int, exit_idx: int,
                    dtype: Optional[torch.dtype] = None) -> dict:
-        """Zero-filled decode cache on the model's device: per segment
-        through exit ``exit_idx``, k and v ``[n, B, max_len, K, Dh]`` in
-        ``dtype`` (default the model's) and ``len`` int32 ``[n, B]``, the
-        reference's shapes."""
+        """Zero-filled decode cache on the model's device, per segment
+        through exit ``exit_idx``, the reference's shapes: k and v ``[n, B,
+        max_len, K, Dh]`` (MLA: c_kv ``[n, B, max_len, d_c]`` and k_pe
+        ``[n, B, max_len, r]``) in ``dtype`` (default the model's) and
+        ``len`` int32 ``[n, B]``."""
         cfg = self.cfg
         dtype = dtype or cfg.dtype
         device = self.embed.device
         caches = []
         for _, start, end in cfg.segments()[:cfg.exit_segment_index(
                 exit_idx)]:
-            shape = (end - start, batch_size, max_len, cfg.num_kv_heads,
-                     cfg.head_dim_)
-            caches.append({
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "len": torch.zeros((end - start, batch_size),
-                                   dtype=torch.int32, device=device),
-            })
+            n = end - start
+            if cfg.mla:
+                shapes = {"c_kv": (n, batch_size, max_len, cfg.kv_lora_rank),
+                          "k_pe": (n, batch_size, max_len,
+                                   cfg.qk_rope_head_dim)}
+            else:
+                kv = (n, batch_size, max_len, cfg.num_kv_heads,
+                      cfg.head_dim_)
+                shapes = {"k": kv, "v": kv}
+            cache = {key: torch.zeros(shape, dtype=dtype, device=device)
+                     for key, shape in shapes.items()}
+            cache["len"] = torch.zeros((n, batch_size), dtype=torch.int32,
+                                       device=device)
+            caches.append(cache)
         return {"segments": caches}

@@ -33,7 +33,7 @@ from repro_torch.core.scheduler import Scheduler
 from repro_torch.core.telemetry import Tracer, decision_margin
 from repro_torch.device import DeviceLike, resolve_device, synchronize
 from repro_torch.models.resnet import EarlyExitResNet, ResNetConfig
-from repro_torch.models.transformer import DecoderLM, LMConfig
+from repro_torch.models import LMConfig, build_model
 
 
 @dataclasses.dataclass
@@ -100,31 +100,56 @@ def serve_resnets(configs: Mapping[str, ResNetConfig], device: DeviceLike = None
     return served
 
 
+def lm_payload(cfg: LMConfig, generator: torch.Generator, prompt_len: int,
+               max_batch: int) -> Dict[str, torch.Tensor]:
+    """One served batch of ``max_batch`` rows for ``cfg``'s family, drawn
+    on the generator's device: ``{"tokens": [B, prompt_len]}`` for a
+    decoder-only model, ``{"embeds": [B, frontend_seq, D]}`` for one with
+    the vision frontend stub, ``{"src_embeds": [B, frontend_seq, D],
+    "tokens": [B, prompt_len]}`` for the encoder-decoder."""
+    device = generator.device
+
+    def embeds():
+        return torch.randn((max_batch, cfg.frontend_seq, cfg.d_model),
+                           generator=generator, device=device).to(cfg.dtype)
+
+    def tokens():
+        return torch.randint(0, cfg.vocab_size, (max_batch, prompt_len),
+                             generator=generator, device=device)
+
+    if cfg.family == "encdec":
+        return {"src_embeds": embeds(), "tokens": tokens()}
+    if cfg.frontend == "vision":
+        return {"embeds": embeds()}
+    return {"tokens": tokens()}
+
+
 def serve_lms(configs: Mapping[str, LMConfig], device: DeviceLike = None,
               seed: int = 0, prompt_len: int = 128,
               max_batch: int = 8) -> List[ServedModel]:
-    """The early-exit LM deployment: one :class:`DecoderLM` per config, in
-    order of increasing cost, as ``examples/serve_multi_model.py`` serves
-    them.
+    """The early-exit LM deployment: one model per config (any family,
+    through ``build_model``), in the order given, as
+    ``examples/serve_multi_model.py`` serves them.
 
     Model ``i``'s weights come from a generator seeded ``seed + i`` on the
-    device itself, and its payload is a slice of one ``[max_batch,
-    prompt_len]`` token tensor drawn once on the device from the same
-    generator, so a quantum times the forward and not a host copy. A quantum
-    is ``exit_decision``: the trunk through exit e, then the fused exit-head
-    kernel on the last position, giving (token, max logit, logsumexp).
+    device itself, and its payload is a slice of one ``max_batch``-row
+    batch (:func:`lm_payload`) drawn once on the device from the same
+    generator, so a quantum times the forward and not a host copy. A
+    quantum is ``exit_decision``: the trunk through exit e, then the fused
+    exit-head kernel on the last position, giving (token, max logit,
+    logsumexp).
     """
     device = resolve_device(device)
     served = []
     for i, (name, cfg) in enumerate(configs.items()):
         gen = torch.Generator(device=device).manual_seed(seed + i)
-        model = DecoderLM(cfg, generator=gen, device=device).eval()
-        tokens = torch.randint(0, cfg.vocab_size, (max_batch, prompt_len),
-                               generator=gen, device=device)
+        model = build_model(cfg, generator=gen, device=device).eval()
+        payload = lm_payload(cfg, gen, prompt_len, max_batch)
         served.append(ServedModel(
             name=name, values=model,
-            forward_fn=lambda mod, x, e: mod.exit_decision({"tokens": x}, e),
-            data_fn=lambda b, _t=tokens: _t[:b], num_exits=cfg.num_exits))
+            forward_fn=lambda mod, batch, e: mod.exit_decision(batch, e),
+            data_fn=lambda b, _p=payload: {k: v[:b] for k, v in _p.items()},
+            num_exits=cfg.num_exits))
     return served
 
 

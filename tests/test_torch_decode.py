@@ -1,7 +1,7 @@
 """The port's KV-cache decode (``init_cache``, ``decode_step``, the cache
 branch of ``attention``) against the JAX reference on the CPU.
 
-The three SMOKE configs get the same numpy-seeded weights on both sides
+The three dense SMOKE configs of the LM cell get the same numpy-seeded weights on both sides
 (``lm_params_from_jax``); decode caches start equal (``init_cache`` on each
 side, or one numpy cache through ``lm_cache_from_jax``), the same seeded
 tokens go in, and every step's logits and caches must agree at float32
@@ -19,14 +19,14 @@ import jax.numpy as jnp
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import get_config
 from repro_torch.models import (
     build_model,
     lm_cache_from_jax,
     lm_params_from_jax,
 )
 
-from test_torch_lm import _numpy_values
+from test_torch_lm import LM_ARCHS, _numpy_values
 
 torch.set_num_threads(1)
 
@@ -63,7 +63,7 @@ class DecodePair:
         return self._prefill(self.values, {"tokens": jnp.asarray(tokens)}, e)
 
 
-@pytest.fixture(scope="module", params=ARCH_IDS)
+@pytest.fixture(scope="module", params=LM_ARCHS)
 def pair(request):
     return DecodePair(request.param)
 

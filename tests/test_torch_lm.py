@@ -52,6 +52,8 @@ from repro_torch.runtime.server import (
 torch.set_num_threads(1)
 
 TOL = dict(rtol=2e-3, atol=2e-3)
+# the dense LMs of the LM cell; the rest of the zoo has its own files
+LM_ARCHS = ("smollm-135m", "phi4-mini-3.8b", "qwen3-8b")
 
 
 def _numpy_values(ref, seed):
@@ -99,7 +101,7 @@ class Pair:
         return self._ref_out[kind, e]
 
 
-@pytest.fixture(scope="module", params=ARCH_IDS)
+@pytest.fixture(scope="module", params=LM_ARCHS)
 def pair(request):
     return Pair(ref_get_config(request.param, smoke=True),
                 get_config(request.param, smoke=True))
@@ -183,11 +185,13 @@ def test_config_checks_raise():
 
 
 def test_unported_paths_raise():
+    """Every family of the reference is ported; a family it does not have
+    raises, and DecoderLM takes only the dense and MoE families."""
     cfg = get_config("smollm-135m", smoke=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(dataclasses.replace(cfg, family="rwkv"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DecoderLM(dataclasses.replace(cfg, mla=True), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="lstm"), device="cpu")
+    with pytest.raises(ValueError, match="dense and moe"):
+        DecoderLM(dataclasses.replace(cfg, family="rwkv"), device="cpu")
 
 
 @pytest.mark.parametrize("theta", [10000.0, 1e6])
@@ -291,9 +295,9 @@ def test_tuple_output_reports_its_device_and_is_waited_for():
 
 
 def test_serve_lms_smoke_deployment_serves_every_request():
-    configs = {a: get_config(a, smoke=True) for a in ARCH_IDS}
+    configs = {a: get_config(a, smoke=True) for a in LM_ARCHS}
     served = serve_lms(configs, device="cpu", prompt_len=16, max_batch=4)
-    assert [m.name for m in served] == list(ARCH_IDS)
+    assert [m.name for m in served] == list(LM_ARCHS)
     idx, mx, lse = served[2].forward_fn(served[2].values,
                                         served[2].data_fn(3), 1)
     assert idx.shape == (3,) and idx.dtype == torch.int32
