@@ -8,9 +8,11 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 It drives the port's live paths end to end, the paper's ResNets and the
 early-exit LMs (served quanta and KV-cache decode):
 
-1. device and build: the card's name and power limit, the five CUDA kernels
-   built from ``src/repro_torch/csrc`` with ``nvcc`` for ``sm_90a`` in one
-   parallel round (with each one's ptxas report), TF32 off;
+1. device and build: the card's name and power limit, the seven CUDA
+   kernels (the five forward kernels and the two backward kernels of the
+   training path) built from ``src/repro_torch/csrc`` with ``nvcc`` for
+   ``sm_90a`` in one parallel round (with each one's ptxas report), TF32
+   off;
 2. the stability-score kernel against its plain PyTorch version on the card
    (greedy, lattice and many-queue shapes, each of the kernel's layouts,
    ragged N; scalar and per-task tau; two clips), its argmin against the
@@ -117,7 +119,24 @@ early-exit LMs (served quanta and KV-cache decode):
    traced rounds), refresh events = ``profiler_refreshes``, one span per
    arrival, ``tools/tracestats.py`` reading both exports, and one profiled
    quantum per model (idle share);
-14. the kernel summary line, then ``{"ok": true, ...}`` as the last line.
+14. training (``train``): the backward kernels (``rmsnorm_bwd`` with the
+   q/k pair, ``flash_attention_bwd``) against their plain versions at the
+   trained shapes of the three LMs (B = 8, S = 256; attention also at
+   B = 1, S = 2048, ragged S = 77 and non-causal) in bfloat16 and float32,
+   each run twice and held bitwise, timed beside the bound, the plain
+   backward and autograd of ``F.rms_norm`` / SDPA; one float32 train step
+   on the card against the CPU (loss, every parameter's gradient by name,
+   the AdamW-updated values) for SmolLM-135M at full width and depth,
+   Phi-4-mini and Qwen3-8B at full width cut to 2 layers and one exit, and
+   ResNet-50 FULL; then SmolLM-135M FULL in bfloat16 with float32 masters
+   through ``launch/train.py``'s loop (B = 8, S = 256, 30 steps, a
+   checkpoint every 10): uninterrupted, preempted after step 19, and
+   resumed with a fresh model, optimizer and stream; the loss falls, the
+   resumed values are within 1e-6 of the uninterrupted run's, every step
+   launches what ``train_implied_launches`` gives, with a step's host and
+   device time (one step profiled), tokens/s and peak memory;
+15. the kernel summary line (the backward kernels beside the five), then
+   ``{"ok": true, ...}`` as the last line.
 
 Each phase prints JSON lines. Any failed check raises, so the script exits
 non-zero before the last line. Without a CUDA device, or outside a checkout
@@ -150,6 +169,9 @@ PEAK_BF16_OPS_PER_S = 989e12
 L2_BYTES = 50 << 20  # the H100's L2
 KERNELS = ("stability_score", "rmsnorm", "flash_attention", "exit_head",
            "decode_attention")
+# the backward kernels of the training path (no TPU kernel: the reference
+# takes these gradients with XLA's autodiff)
+BWD_KERNELS = ("rmsnorm_bwd", "flash_attention_bwd")
 OPS_PER_ELEMENT = 8   # add, div, sub, min, exp, min, mul, add per (n, task)
 
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-4
@@ -266,12 +288,12 @@ def phase_device_and_build():
     card = smi("name,power.limit")
     print(card, flush=True)
     t0 = time.perf_counter()
-    paths = build.build(list(KERNELS))
+    paths = build.build(list(KERNELS + BWD_KERNELS))
     seconds = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in build.BUILD_LOG.get(
         name, {}).get("ptxas", "").splitlines()
         if "registers" in ln or "spill" in ln or "entry function" in ln]
-        for name in KERNELS}
+        for name in KERNELS + BWD_KERNELS}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     emit("build", card=card, torch=torch.__version__,
@@ -279,7 +301,7 @@ def phase_device_and_build():
          libraries={n: p.name for n, p in paths.items()},
          build_seconds=seconds,
          per_kernel_seconds={n: build.BUILD_LOG.get(n, {}).get("seconds")
-                             for n in KERNELS},
+                             for n in KERNELS + BWD_KERNELS},
          ptxas=ptxas)
     return card
 
@@ -2155,6 +2177,10 @@ def phase_lm_serving(configs, device, horizon=HORIZON_S):
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
+    if "rmsnorm_bwd" in low:
+        return "rmsnorm_bwd"
+    if "dq_kernel" in low or "dkv_kernel" in low:  # flash_attention_bwd.cu
+        return "flash_attention_bwd"
     for key in ("rmsnorm", "flash_attention", "exit_head", "decode_attention"):
         if key in low:
             return key
@@ -3264,6 +3290,491 @@ def phase_lm_zoo(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: training (optimizers, the train step, checkpoints, the CLI loop)
+# ---------------------------------------------------------------------------
+
+# the trained cell: SmolLM-135M FULL in bfloat16 with float32 masters,
+# through launch/train.py's loop; preempted after step PREEMPT - 1 (a save
+# of step PREEMPT), then resumed with fresh model, optimizer and stream
+TRAIN = dict(arch=LM_ARCHS[0], smoke=False, batch=8, seq=256, steps=30,
+             every=10, preempt=20, lr=3e-3)
+TRAIN_PROFILED_STEP = 25
+TRAIN_CHECK = dict(batch=2, seq=32, lr=1e-4)  # the float32 card-vs-CPU step
+RESUME_TOL = 1e-6   # examples/elastic_failover.py's bound
+# rmsnorm's gradient per element: x^2 and its sum, dy * g * x and its sum,
+# x^ = x * r, dy * g, x^ * c, the difference, its product with r, dy * x^
+# and its sum into the gain's gradient
+RMSNORM_BWD_OPS = 12
+
+
+def train_implied_launches(cfg, grad_accum=1):
+    """The kernels' launches one train step of ``cfg`` (a dense or GQA MoE
+    family, no remat) implies: the forward as a final-exit quantum without
+    the exit head (``implied_launches``) plus each exit's norm (``train_loss``
+    takes every exit's logits), each norm (or q/k pair) and each attention
+    call's backward two launches, all times ``grad_accum``."""
+    check(cfg.remat == "none", f"{cfg.arch_id}: remat recomputes blocks")
+    fwd = implied_launches(cfg, cfg.num_exits - 1)
+    norms = fwd["rmsnorm"] + cfg.num_exits
+    attn = fwd["flash_attention"]
+    calls = {"rmsnorm": norms, "flash_attention": attn,
+             "rmsnorm_bwd": 2 * norms, "flash_attention_bwd": 2 * attn}
+    return {k: grad_accum * n for k, n in calls.items()}
+
+
+def _train_kernel_cases(configs):
+    """(kernel, label, shape) at the trained shapes of every LM (B = 8,
+    S = 256: rmsnorm over B x S rows, the q/k pair over B x S x H and
+    B x S x K rows, attention per layer), then the last model's attention
+    at B = 1, S = 2048 (the same rmsnorm rows as B = 8, S = 256), at a
+    ragged S = 77 and non-causal, and ragged rmsnorm rows."""
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    cases = []
+    for arch, cfg in configs.items():
+        heads = (cfg.num_heads, cfg.num_kv_heads)
+        dh = cfg.head_dim_
+        cases.append(("rmsnorm_bwd", f"{arch}/residual", (b * s, cfg.d_model)))
+        if cfg.qk_norm:
+            cases.append(("rmsnorm_bwd", f"{arch}/qk_pair",
+                          (b * s * cfg.num_heads, b * s * cfg.num_kv_heads,
+                           dh)))
+        cases.append(("flash_attention_bwd", f"{arch}/train",
+                      (b, *heads, s, dh, True)))
+    last = list(configs.values())[-1]
+    heads, dh = (last.num_heads, last.num_kv_heads), last.head_dim_
+    cases += [("flash_attention_bwd", "long_prompt_s2048",
+               (1, *heads, 2048, dh, True)),
+              ("flash_attention_bwd", "ragged_s77", (2, *heads, 77, dh, True)),
+              ("flash_attention_bwd", "noncausal_s256",
+               (2, *heads, s, dh, False)),
+              ("rmsnorm_bwd", "ragged_t1000", (1000, 4096))]
+    return cases
+
+
+def _train_kernel_inputs(kernel, shape, dtype, device, gen):
+    """rmsnorm: (x, g, dy) per tensor; attention: the model's [B, H, S, D]
+    views of [B, S, H, D] q, k, v, the forward kernel's output, do, causal."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    def randn(*size, scale=1.0, shift=0.0):
+        x = torch.randn(size, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * scale + shift).to(dtype)
+
+    if kernel == "rmsnorm_bwd":
+        *rows, d = shape
+        return sum(((randn(t, d, scale=3.0), randn(d, scale=0.2, shift=1.0),
+                     randn(t, d)) for t in rows), ())
+    b, h, kh, s, d, causal = shape
+    q = randn(b, s, h, d).transpose(1, 2)
+    k, v = (randn(b, s, kh, d).transpose(1, 2) for _ in range(2))
+    out = flash_attention(q, k, v, causal=causal)
+    return q, k, v, out, randn(b, s, h, d).transpose(1, 2), causal
+
+
+def _bwd_wrappers():
+    """{kernel: (the backward wrapper, its plain version)}."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain,
+    )
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd, rmsnorm_pair_bwd
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_plain
+
+    def norm(*args):  # one tensor, or the q/k pair
+        return (rmsnorm_bwd(*args) if len(args) == 3
+                else rmsnorm_pair_bwd(*args))
+
+    def norm_plain(*args):
+        return (rmsnorm_bwd_plain(*args) if len(args) == 3 else
+                (*rmsnorm_bwd_plain(*args[:3]), *rmsnorm_bwd_plain(*args[3:])))
+
+    def attn(q, k, v, out, dout, causal):
+        return flash_attention_bwd(q, k, v, out, dout, causal=causal)
+
+    return {"rmsnorm_bwd": (norm, norm_plain),
+            "flash_attention_bwd": (attn, flash_attention_bwd_plain)}
+
+
+def _bwd_cost(kernel, shape, dtype):
+    """(bytes, operations, rate) of one backward call: each input read once
+    and each output written once; attention's five products (the scores
+    again, dP, dV, dQ, dK) at 2 S^2 D a head each, halved when causal."""
+    import torch
+
+    el = torch.tensor([], dtype=dtype).element_size()
+    if kernel == "rmsnorm_bwd":
+        *rows, d = shape
+        t = sum(rows)
+        nbytes = 3 * t * d * el + len(rows) * (d * el + d * 4)
+        return nbytes, RMSNORM_BWD_OPS * t * d, _rate(dtype, False)
+    b, h, kh, s, d, causal = shape
+    nbytes = (4 * b * h * s * d + 4 * b * kh * s * d) * el
+    ops = 5 * 2 * b * h * s * s * d / (2 if causal else 1)
+    return nbytes, ops, _rate(dtype, True)
+
+
+def _bwd_library(kernel, args):
+    """One PyTorch call giving the same gradient, timed as the yardstick
+    (the port never calls it): autograd of ``F.rms_norm`` or of SDPA, on a
+    graph built once; None for the q/k pair (no one call)."""
+    import torch
+    import torch.nn.functional as F
+
+    if kernel == "rmsnorm_bwd":
+        if len(args) != 3:
+            return None
+        x, g, dy = args
+        xr, gr = (t.detach().requires_grad_(True) for t in (x, g))
+        out = F.rms_norm(xr, (x.shape[-1],), weight=gr, eps=1e-6)
+        return lambda: torch.autograd.grad(out, (xr, gr), dy,
+                                           retain_graph=True)
+    q, k, v, _, dout, causal = args
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                         enable_gqa=True)
+    return lambda: torch.autograd.grad(out, (qr, kr, vr), dout,
+                                       retain_graph=True)
+
+
+def _grad_close(label, got, want, tol):
+    """Max abs error of each of ``got`` against ``want``; raises where one
+    exceeds tol * (1 + max|want|) (a gradient's scale-relative rule)."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        check(bool(torch.isfinite(g).all()), f"{label} not finite")
+        e = float((g - w).abs().max()) if w.numel() else 0.0
+        bound = tol * (1.0 + (float(w.abs().max()) if w.numel() else 0.0))
+        check(e <= bound, f"{label}: max abs err {e} beyond {bound}")
+        err = max(err, e)
+    return err
+
+
+def run_bwd_cases(cases, dev, gen):
+    """Each backward case against its plain version in bfloat16 and
+    float32, run twice and held bitwise, timed in both dtypes. Returns
+    ({kernel: {dtype: max abs err}}, {kernel: {label[/float32]: timing}})."""
+    import torch
+
+    from repro_torch.device import synchronize
+
+    wrappers = _bwd_wrappers()
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in wrappers}
+    timings = {k: {} for k in wrappers}
+    for kernel, label, shape in cases:
+        fn, plain = wrappers[kernel]
+        for dname, dtype in dtypes.items():
+            args = _train_kernel_inputs(kernel, shape, dtype, dev, gen)
+            got = fn(*args)
+            again = fn(*args)
+            synchronize(dev)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{kernel} {label} {dname}: two runs differ")
+            want = plain(*args)
+            errs[kernel][dname] = max(errs[kernel][dname], _grad_close(
+                f"{kernel} {label} {dname}", got, want, LM_TOL[dname]))
+            nbytes, ops, rate = _bwd_cost(kernel, shape, dtype)
+            bound, bound_by = _bound_ms(nbytes, ops, rate)
+            lib = _bwd_library(kernel, args)
+            key = label if dname == "bfloat16" else f"{label}/{dname}"
+            timings[kernel][key] = dict(
+                shape=list(shape), dtype=dname,
+                ms=graph_ms(lambda: fn(*args), 10, per_graph=5),
+                plain_ms=cuda_ms(lambda: plain(*args), 3, warmup=1),
+                library_ms=None if lib is None else cuda_ms(lib, 10,
+                                                            warmup=2),
+                bound_ms=bound, bound_by=bound_by)
+            del got, again, want, args, lib
+    return errs, timings
+
+
+def _train_check_batch(cfg, seed):
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_CHECK["batch"],
+                                             TRAIN_CHECK["seq"] + 1),
+                         generator=gen, dtype=torch.int64)
+    return {"tokens": toks[:, :-1].to(torch.int32),
+            "labels": toks[:, 1:].to(torch.int32)}
+
+
+def _train_step_parts(model, batch, dev):
+    """One float32 AdamW step of ``model`` on ``dev``, as ``train_step``
+    runs it, with its parts left on ``dev``: (loss, {name: gradient},
+    {name: new value}, the kernels' launches)."""
+    import torch
+
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import AdamW, clip_by_global_norm
+    from repro_torch.runtime.trainer import make_grad_fn, master_values
+
+    opt = AdamW(lr=TRAIN_CHECK["lr"])
+    values = master_values(model)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    reset_launch_counts()
+    loss, _, grads = make_grad_fn(model)(values, batch)
+    clipped, _ = clip_by_global_norm(grads, 1.0)
+    launches = dict(launch_counts)
+    new, _ = opt.step(values, clipped, opt.init(values), 0)
+    synchronize(dev)
+    del values, clipped
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return float(loss), grads, new, launches
+
+
+def _train_check_pair(label, model, batch, want_launches):
+    """The step on the model's device (the kernels) against the same model
+    moved to the CPU (the plain versions): loss at float32's 2e-3, every
+    gradient by name and every updated value at 2e-3 * (1 + the leaf's
+    largest), compared on the model's device; returns the errors."""
+    import torch
+
+    dev = next(model.parameters()).device
+    card = _train_step_parts(model, batch, dev)
+    host = _train_step_parts(model.to("cpu"), batch, torch.device("cpu"))
+    tol = LM_TOL["float32"]
+    check(abs(card[0] - host[0]) <= tol * abs(host[0]),
+          f"{label}: loss {card[0]} on the card, {host[0]} on the CPU")
+    check(set(card[1]) == set(host[1]), f"{label}: gradient names differ")
+    grad_err = max(_grad_close(f"{label} grad {n}", [card[1][n]],
+                               [host[1][n].to(dev)], tol) for n in host[1])
+    value_err = max(_grad_close(f"{label} value {n}", [card[2][n]],
+                                [host[2][n].to(dev)], tol) for n in host[2])
+    if dev.type == "cuda":
+        check(card[3] == want_launches,
+              f"{label}: launches {card[3]}, implied {want_launches}")
+    return dict(loss_card=card[0], loss_cpu=host[0],
+                max_grad_err=grad_err, max_value_err=value_err,
+                params=len(host[1]), launches=card[3])
+
+
+def _train_f32_checks(configs, device):
+    """One float32 train step card against CPU: SmolLM at full width and
+    depth, the others at full width cut to 2 layers and one exit (phase 8's
+    cut), and the FULL ResNet-50 (no kernel of the repo on its path)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import FULL
+    from repro_torch.data import cifar100_like
+    from repro_torch.models import DecoderLM, EarlyExitResNet
+
+    rows, cuts = {}, {}
+    for i, (arch, cfg) in enumerate(configs.items()):
+        if i == 0:
+            cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        else:
+            cfg32 = dataclasses.replace(cfg, num_layers=2, exits=(2,),
+                                        dtype=torch.float32)
+            cuts[arch] = "2 layers, one exit"
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(11 + i)
+        model = DecoderLM(cfg32, generator=gen, device=device)
+        rows[arch] = _train_check_pair(arch, model, _train_check_batch(
+            cfg32, i), train_implied_launches(cfg32))
+        rows[arch]["seconds"] = time.perf_counter() - t0
+        del model
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = EarlyExitResNet(FULL["resnet50"], torch.Generator().manual_seed(
+        3), device=device)
+    imgs, labels = cifar100_like(TRAIN_CHECK["batch"], seed=4, device="cpu")
+    rows["resnet50"] = _train_check_pair(
+        "resnet50", model, {"images": imgs, "labels": labels}, {})
+    rows["resnet50"]["seconds"] = time.perf_counter() - t0
+    return rows, cuts
+
+
+def _train_args(ckdir, resume=False, train=None):
+    from repro_torch.launch.train import parser
+
+    t = train or TRAIN
+    argv = ["--arch", t["arch"], "--steps", str(t["steps"]),
+            "--batch", str(t["batch"]), "--seq", str(t["seq"]),
+            "--lr", str(t["lr"]), "--checkpoint-dir", ckdir,
+            "--checkpoint-every", str(t["every"]),
+            "--log-every", str(t["every"]), "--device", t["device"]]
+    if t["smoke"]:
+        argv.append("--smoke")
+    if resume:
+        argv.append("--resume")
+    return parser().parse_args(argv)
+
+
+def _train_loop(device, train, tmp):
+    """The CLI loop three times: uninterrupted (every step synchronised and
+    timed, its launches held to the implied count, one step profiled),
+    preempted after step ``preempt`` - 1, and resumed from that save with a
+    fresh model, optimizer and stream. Returns the phase's row and the
+    loop's launches."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import synchronize
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import train as run_train
+    from repro_torch.runtime.checkpoint import Checkpointer
+    from repro_torch.runtime.fault_tolerance import PreemptionGuard
+
+    dev = torch.device(device)
+    cfg = get_config(train["arch"], smoke=train["smoke"])
+    want = train_implied_launches(cfg)
+    total = {}
+    steps = []
+    prof_box = {}
+
+    def count(step):
+        got = dict(launch_counts)
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        reset_launch_counts()
+        if dev.type == "cuda":
+            check(got == want, f"train step {step}: launches {got}, implied "
+                  f"{want}")
+        return got
+
+    def on_timed(step, metrics):
+        synchronize(dev)
+        steps.append((step, time.perf_counter(), float(metrics["loss"])))
+        count(step)
+        if step == TRAIN_PROFILED_STEP - 1 and dev.type == "cuda":
+            prof_box["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA])
+            prof_box["prof"].__enter__()
+            prof_box["t0"] = time.perf_counter()
+        elif step == TRAIN_PROFILED_STEP and "prof" in prof_box:
+            prof_box["wall_ms"] = (time.perf_counter() - prof_box["t0"]) * 1e3
+            prof_box["prof"].__exit__(None, None, None)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    whole = run_train(_train_args(os.path.join(tmp, "whole"), train=train),
+                      guard=PreemptionGuard(), on_step=on_timed)
+    whole_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else None)
+    check(whole["end_step"] == train["steps"], "the whole run stopped early")
+    losses = [loss for _, _, loss in steps]
+    check(losses[-1] < losses[0], f"train loss {losses[-1]} at the last "
+          f"step is not below {losses[0]} at the first")
+    walls = np.diff([t for _, t, _ in steps]) * 1e3  # steps 1..N-1, ms
+    # the profiled step and the next (the profiler's start and stop) aside
+    unprofiled = [w for s, w in zip(range(1, len(steps)), walls)
+                  if s not in (TRAIN_PROFILED_STEP, TRAIN_PROFILED_STEP + 1)]
+    step_ms = float(np.median(unprofiled))
+    device_ms = by_class = kernels = None
+    if "prof" in prof_box:
+        by_class, kernels = _device_ms_by_class(prof_box["prof"])
+        device_ms = sum(by_class.values())
+
+    guard = PreemptionGuard()
+
+    def on_cut(step, metrics):
+        count(step)
+        if step == train["preempt"] - 1:
+            guard.request_stop()
+
+    cut_dir = os.path.join(tmp, "cut")
+    cut = run_train(_train_args(cut_dir, train=train), guard=guard,
+                    on_step=on_cut)
+    check(cut["end_step"] == train["preempt"],
+          f"the preempted run ended at {cut['end_step']}")
+    committed = Checkpointer(cut_dir).committed_steps()
+    check(committed[-1] == train["preempt"],
+          f"the preempted run's checkpoints {committed}")
+    t0 = time.perf_counter()
+    resumed = run_train(_train_args(cut_dir, resume=True, train=train),
+                        guard=PreemptionGuard(),
+                        on_step=lambda step, metrics: count(step))
+    resume_s = time.perf_counter() - t0
+    check(resumed["start_step"] == train["preempt"]
+          and resumed["end_step"] == train["steps"],
+          f"resumed {resumed['start_step']}..{resumed['end_step']}")
+    diff = max(float((resumed["values"][k] - v).abs().max())
+               for k, v in whole["values"].items())
+    check(diff <= RESUME_TOL, f"resumed values differ from the whole run's "
+          f"by {diff}, beyond {RESUME_TOL}")
+    tokens = train["batch"] * train["seq"]
+    row = dict(
+        arch=cfg.arch_id, dtype=str(cfg.dtype).split(".")[-1],
+        masters="float32", batch=train["batch"], seq=train["seq"],
+        steps=train["steps"], lr=train["lr"], optimizer="AdamW",
+        checkpoint_every=train["every"], preempted_at=train["preempt"],
+        committed_when_preempted=committed, losses=losses,
+        loss_first=losses[0], loss_last=losses[-1],
+        resume_max_abs_diff=diff, resume_tol=RESUME_TOL,
+        launches_per_step=want, launches=total,
+        step_host_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+        profiled_step=TRAIN_PROFILED_STEP,
+        profiled_step_wall_ms=prof_box.get("wall_ms"),
+        step_device_ms=device_ms, device_ms_by_class=by_class,
+        kernels_by_class=kernels,
+        idle_share=(None if device_ms is None else 1.0 - device_ms / step_ms),
+        peak_memory_gb=peak_gb, whole_run_s=whole_s, resumed_run_s=resume_s)
+    return row, total
+
+
+def phase_train(device, configs=None, train=None):
+    """Training on the card: the two backward kernels against their plain
+    versions at the trained shapes (bitwise twice, timed), one float32
+    train step card against CPU for every parameter of SmolLM-135M (full),
+    Phi-4-mini and Qwen3-8B (2 layers) and ResNet-50, then SmolLM-135M FULL
+    trained in bfloat16 with float32 masters through launch/train.py's
+    loop: preempted, resumed, launches as implied. Returns (the loop's
+    launches, the kernel check's errors and timings)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    configs = configs or {arch: get_config(arch) for arch in LM_ARCHS}
+    train = dict(TRAIN, device=device, **(train or {}))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs, timings = run_bwd_cases(_train_kernel_cases(configs), dev, gen)
+    emit("train_kernels", max_abs_err=errs, tol=LM_TOL,
+         tol_rule="max|err| <= tol * (1 + max|plain|)", timings=timings,
+         card=smi("name,power.limit"), seconds=time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    rows, cuts = _train_f32_checks(configs, device)
+    emit("train_f32", rows=rows, cut=cuts, tol=LM_TOL["float32"],
+         batch=TRAIN_CHECK["batch"], seq=TRAIN_CHECK["seq"],
+         seconds=time.perf_counter() - t0)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        row, launches = _train_loop(device, train, tmp)
+    emit("train_loop", **row, card=smi("name,power.limit"),
+         seconds=time.perf_counter() - t0)
+    print(f"train: step host ms {row['step_host_ms']:.3f} against device ms "
+          f"{row['step_device_ms']} (idle share {row['idle_share']}), "
+          f"{row['tokens_per_s']:.1f} tokens/s, peak memory "
+          f"{row['peak_memory_gb']} GB", flush=True)
+    emit("train_phase", seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches, dict(errs=errs, timings=timings)
+
+
+# ---------------------------------------------------------------------------
 # The kernel summary line
 # ---------------------------------------------------------------------------
 
@@ -3284,14 +3795,28 @@ LM_KERNEL_ROWS = {
 }
 
 
+BWD_KERNEL_ROWS = {
+    # kernel: (source, what it replaces, the main timed case)
+    "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
+                    "src/repro/models/common.py:135",
+                    f"{LM_ARCHS[0]}/residual"),
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:52",
+                            f"{LM_ARCHS[0]}/train"),
+}
+
+
 def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
                    lm_kernels, lm_launches, decode_launches, multi_launches,
-                   multi_timings, zoo_launches, zoo_kernels):
+                   multi_timings, zoo_launches, zoo_kernels, train_launches,
+                   train_kernels):
     """One entry per kernel of the port's paths, with every key of the
     contract; the stability score's launches are the three serving runs',
     the simulated cells' and the fleet cells', and the LM kernels' those of
-    the LM serve, the decode phase and the serve_multi_model run (whose
-    timed shapes join each row's ``cases``)."""
+    the LM serve, the decode phase, the serve_multi_model run (whose timed
+    shapes join each row's ``cases``) and the training loop. The backward
+    kernels replace no TPU kernel: ``replaces`` names the jnp form whose
+    gradient the reference takes with XLA's autodiff."""
     t3 = kernel["timings"]["m3"]
     t256 = kernel["timings"]["m256"]
     rows = [{
@@ -3331,7 +3856,8 @@ def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
         paths = {"lm_serve": lm_launches.get(name, 0),
                  "lm_decode": decode_launches.get(name, 0),
                  "lm_zoo": zoo_launches.get(name, 0),
-                 "lm_multi": multi_launches.get(name, 0)}
+                 "lm_multi": multi_launches.get(name, 0),
+                 "train": train_launches.get(name, 0)}
         zoo_errs = zoo_kernels["errs"][name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -3353,6 +3879,27 @@ def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
         if f32 is not None:
             rows[-1].update({f"{k}_f32": f32[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    for name, (source, replaces, main_case) in BWD_KERNEL_ROWS.items():
+        timings = train_kernels["timings"][name]
+        t, f32 = timings[main_case], timings[f"{main_case}/float32"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "replaces_note": "no TPU kernel: the gradient XLA's autodiff "
+                             "takes of this jnp form in train_loss",
+            "launches": train_launches.get(name, 0),
+            "launches_train": train_launches.get(name, 0),
+            "max_abs_err": train_kernels["errs"][name]["float32"],
+            "max_abs_err_bf16": train_kernels["errs"][name]["bfloat16"],
+            "tol_rule": "max|err| <= tol * (1 + max|plain|)",
+            "case": main_case, "shape": t["shape"], "dtype": t["dtype"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            **{f"{k}_f32": f32[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "cases": timings,
+        })
     return rows
 
 
@@ -3391,10 +3938,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     zoo_launches, zoo_kernels = phase_lm_zoo("cuda")
     multi_launches, multi_timings = phase_lm_multi("cuda")
+    torch.cuda.empty_cache()
+    train_launches, train_kernels = phase_train("cuda")
     print(json.dumps({"kernels": kernel_summary(
         kernel, resnet_launches, sim_launches, fleet_launches, lm_kernels,
         lm_launches, decode_launches, multi_launches, multi_timings,
-        zoo_launches, zoo_kernels)}),
+        zoo_launches, zoo_kernels, train_launches, train_kernels)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,19 @@
-"""Public wrapper for the flash-attention kernels
-(``csrc/flash_attention.cu``).
+"""Public wrappers for the flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and its gradient
+(``csrc/flash_attention_bwd.cu``).
 
-CPU tensors go to the plain version in ``ref.py``; CUDA tensors launch a
+CPU tensors go to the plain versions in ``ref.py``; CUDA tensors launch a
 CUDA kernel, or the wrapper raises. There is no fallback between the two.
-On the card, bfloat16 runs on the tensor cores and float32 on the CUDA
-cores; the dtype picks the kernel, and neither stands in for the other.
+On the card, the forward runs bfloat16 on the tensor cores and float32 on
+the CUDA cores; the dtype picks the kernel, and neither stands in for the
+other.
+
+``flash_attention`` takes its direct path (one forward launch, no graph)
+whenever autograd is off or no input requires a gradient: serving never
+reaches the code below it. Otherwise it goes through a
+``torch.autograd.Function`` whose forward is that same direct path, saving
+q, k, v and the output, and whose backward is ``flash_attention_bwd``: the
+backward kernel on the card, the plain backward on the CPU.
 """
 
 from __future__ import annotations
@@ -15,12 +24,61 @@ import math
 import torch
 
 from repro_torch.kernels import checks, launch_counts
-from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 
 KERNEL = "flash_attention"
+BWD_KERNEL = "flash_attention_bwd"
+BWD_LAUNCHES = 2  # dq (with each row's lse and delta), then dk and dv
 HEAD_DIMS = (16, 32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _shapes(q: torch.Tensor, k: torch.Tensor, kernel: str):
+    """(B, H, K, S, D) of q ``[B, H, S, D]`` and k ``[B, K, S, D]``; raises
+    on a layout the kernels do not take."""
+    checks.require_cuda(q, kernel)
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("q must be [B, H, S, D] and k, v [B, K, S, D]")
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if kh == 0 or h % kh:
+        raise ValueError(f"H={h} is not a multiple of K={kh}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    return b, h, kh, s, d
+
+
+def _check_strided(q: torch.Tensor, named, shapes) -> None:
+    """Each of ``named`` [(name, tensor)] has q's dtype and device, its
+    shape from ``shapes``, and a contiguous last dimension."""
+    for (name, t), shape in zip(named, shapes):
+        checks.check(t, name, q.dtype, shape, q.device, contiguous=False)
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s last dimension must be contiguous")
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _flash_attention(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -39,25 +97,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     that does not hold the wrapper raises ``ValueError``; it never copies
     to make it hold. The model's views (``x.transpose(1, 2)`` of a fresh
     ``[B, S, H, D]`` tensor, D in 16..128) always meet it.
+
+    Differentiable: with autograd on and an input that requires a
+    gradient, the backward runs :func:`flash_attention_bwd`.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _flash_attention(q, k, v, causal)
+
+
+def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    checks.require_cuda(q, KERNEL)
-    if q.ndim != 4 or k.ndim != 4:
-        raise ValueError("q must be [B, H, S, D] and k, v [B, K, S, D]")
-    b, h, s, d = q.shape
-    kh = k.shape[1]
-    if kh == 0 or h % kh:
-        raise ValueError(f"H={h} is not a multiple of K={kh}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    b, h, kh, s, d = _shapes(q, k, KERNEL)
     code = checks.dtype_code(q, "q")
-    for name, t, shape in (("q", q, (b, h, s, d)), ("k", k, (b, kh, s, d)),
-                           ("v", v, (b, kh, s, d))):
-        checks.check(t, name, q.dtype, shape, q.device, contiguous=False)
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}'s last dimension must be contiguous")
-        if t.dtype == torch.bfloat16:
+    _check_strided(q, (("q", q), ("k", k), ("v", v)),
+                   ((b, h, s, d), (b, kh, s, d), (b, kh, s, d)))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
             checks.require_16_byte_rows(t, name)
     out = torch.empty_like(q)  # q's strides, or contiguous: aligned either way
     strides = (ctypes.c_int64 * 12)(*(
@@ -68,3 +127,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                b, h, kh, s, d, 1.0 / math.sqrt(d), int(causal), code)
     launch_counts[KERNEL] += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True):
+    """The gradient of :func:`flash_attention` at q ``[B, H, S, D]``, k, v
+    ``[B, K, S, D]``, its output ``out`` and the output's gradient
+    ``dout`` (both ``[B, H, S, D]``): (dq, dk, dv) in the inputs' dtype,
+    the query heads of each group summed into their kv head.
+
+    On the card: two launches (dq with each row's logsumexp recomputed from
+    q and k and delta = rowsum(dout * out), then dk and dv a key tile at a
+    time), no float atomics, so the same inputs give the same gradient
+    bitwise; float32 or bfloat16, any S, causal or not, D one of 16, 32,
+    64, 128. The inputs are read through their strides, as the forward
+    reads them: strided views go in without copies (the last dimension
+    must be contiguous); dq, dk and dv come back contiguous. On the CPU,
+    the plain backward.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal)
+    b, h, kh, s, d = _shapes(q, k, BWD_KERNEL)
+    code = checks.dtype_code(q, "q")
+    _check_strided(q, (("q", q), ("k", k), ("v", v), ("out", out),
+                       ("dout", dout)),
+                   ((b, h, s, d), (b, kh, s, d), (b, kh, s, d),
+                    (b, h, s, d), (b, h, s, d)))
+    dq = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, kh, s, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_int64 * 15)(*(
+        st for t in (q, k, v, out, dout) for st in t.stride()[:3]))
+    fn = checks.launcher(BWD_KERNEL, "flash_attention_bwd_launch",
+                         _BWD_ARGTYPES)
+    checks.run(BWD_KERNEL, fn, q.device, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+               delta.data_ptr(), ctypes.addressof(strides), b, h, kh, s, d,
+               1.0 / math.sqrt(d), int(causal), code)
+    launch_counts[BWD_KERNEL] += BWD_LAUNCHES
+    return dq, dk, dv

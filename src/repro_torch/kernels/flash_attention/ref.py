@@ -49,3 +49,39 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = sdpa_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                      causal)
     return out.transpose(1, 2)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, causal: bool = True):
+    """The gradient of :func:`flash_attention_plain` as explicit formulas
+    (the backward kernel ``csrc/flash_attention_bwd.cu``'s plain version).
+    q, o, do ``[B, H, S, D]``; k, v ``[B, K, S, D]``. In float32: P =
+    softmax(q.k^T / sqrt(D)) (causal where asked), delta = rowsum(do * o),
+    dv = P^T.do with P rounded to the input dtype first (as the forward
+    rounds it before P.V), dP = do.v^T, dS = P * (dP - delta), dq = dS.k /
+    sqrt(D), dk = dS^T.q / sqrt(D); the query heads of a group are summed
+    into their kv head. Returns (dq, dk, dv) in the inputs' dtype."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    f32 = torch.float32
+    scale = (1.0 / torch.sqrt(torch.tensor(float(d)))).item()
+    qf = q.to(f32).reshape(b, kh, g, s, d)
+    kf, vf = k.to(f32), v.to(f32)
+    dof = do.to(f32).reshape(b, kh, g, s, d)
+    of = o.to(f32).reshape(b, kh, g, s, d)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        keep = pos[None, :] <= pos[:, None]
+        scores = scores.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p.to(q.dtype).to(f32), dof)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return (dq.reshape(b, h, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

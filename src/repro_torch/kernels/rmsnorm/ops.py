@@ -1,7 +1,15 @@
-"""Public wrappers for the RMSNorm kernel (``csrc/rmsnorm.cu``).
+"""Public wrappers for the RMSNorm kernels: the forward
+(``csrc/rmsnorm.cu``) and its gradient (``csrc/rmsnorm_bwd.cu``).
 
-CPU tensors go to the plain version in ``ref.py``; CUDA tensors launch the
-CUDA kernel, or the wrapper raises. There is no fallback between the two.
+CPU tensors go to the plain versions in ``ref.py``; CUDA tensors launch the
+CUDA kernels, or the wrapper raises. There is no fallback between the two.
+
+``rmsnorm`` and ``rmsnorm_pair`` take their direct path (one forward
+launch, no graph) whenever autograd is off or no input requires a
+gradient: serving never reaches the code below them. Otherwise they go
+through a ``torch.autograd.Function`` whose forward is that same direct
+path and whose backward is ``rmsnorm_bwd`` (``rmsnorm_pair_bwd``): the
+backward kernel on the card, the plain backward on the CPU.
 """
 
 from __future__ import annotations
@@ -12,21 +20,27 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import checks, launch_counts
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_plain, rmsnorm_plain
 
 KERNEL = "rmsnorm"
+BWD_KERNEL = "rmsnorm_bwd"
+BWD_LAUNCHES = 2  # the rows kernel, then the gain's fixed-order reduction
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p]
 _PAIR_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]) * 2 + [
     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_BWD_PAIR_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]) * 2 + [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
 
 
-def _check(x: torch.Tensor, gain: torch.Tensor, name: str) -> int:
+def _check(x: torch.Tensor, gain: torch.Tensor, name: str,
+           kernel: str = KERNEL) -> int:
     """Raise unless ``x`` is a contiguous ``[T, D]`` card tensor of a type
     the kernel takes, with a ``[D]`` gain of the same type; returns its
     dtype code."""
-    checks.require_cuda(x, KERNEL)
+    checks.require_cuda(x, kernel)
     if x.ndim != 2:
         raise ValueError(f"{name} must be [T, D], got shape {tuple(x.shape)}")
     code = checks.dtype_code(x, name)
@@ -35,10 +49,11 @@ def _check(x: torch.Tensor, gain: torch.Tensor, name: str) -> int:
     return code
 
 
-def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *,
-            eps: float = 1e-6) -> torch.Tensor:
-    """x ``[T, D]`` and gain ``[D]``, both float32 or both bfloat16 ->
-    ``[T, D]`` in x's dtype; one launch on the card."""
+def _wants_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_plain(x, gain, eps)
     code = _check(x, gain, "x")
@@ -51,22 +66,25 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *,
     return out
 
 
-def rmsnorm_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
-                 gk: torch.Tensor, *, eps: float = 1e-6
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(rmsnorm(xq, gq), rmsnorm(xk, gk))`` for xq ``[T_q, D]`` and xk
-    ``[T_k, D]`` of one dtype, in one launch on the card (a model's per-head
-    q and k norms); on the CPU, two calls of the plain version."""
-    if xq.device.type == "cpu":
-        return rmsnorm_plain(xq, gq, eps), rmsnorm_plain(xk, gk, eps)
-    code = _check(xq, gq, "xq")
-    _check(xk, gk, "xk")
+def _check_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
+                gk: torch.Tensor, kernel: str) -> int:
+    code = _check(xq, gq, "xq", kernel)
+    _check(xk, gk, "xk", kernel)
     if xk.dtype != xq.dtype or xk.device != xq.device:
         raise TypeError(f"xk ({xk.dtype}, {xk.device}) must match xq "
                         f"({xq.dtype}, {xq.device})")
     if xk.shape[1] != xq.shape[1]:
         raise ValueError(f"xq and xk need one D, got {xq.shape[1]} and "
                          f"{xk.shape[1]}")
+    return code
+
+
+def _rmsnorm_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
+                  gk: torch.Tensor, eps: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if xq.device.type == "cpu":
+        return rmsnorm_plain(xq, gq, eps), rmsnorm_plain(xk, gk, eps)
+    code = _check_pair(xq, gq, xk, gk, KERNEL)
     oq, ok = torch.empty_like(xq), torch.empty_like(xk)
     fn = checks.launcher(KERNEL, "rmsnorm_pair_launch", _PAIR_ARGTYPES)
     checks.run(KERNEL, fn, xq.device,
@@ -75,3 +93,115 @@ def rmsnorm_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
                xq.shape[1], float(eps), code)
     launch_counts[KERNEL] += 1
     return oq, ok
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gain, eps):
+        ctx.save_for_backward(x, gain)
+        ctx.eps = eps
+        return _rmsnorm(x, gain, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gain = ctx.saved_tensors
+        dx, dgain = rmsnorm_bwd(x, gain, dy.contiguous(), eps=ctx.eps)
+        return dx, dgain.to(gain.dtype), None
+
+
+class _RMSNormPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xq, gq, xk, gk, eps):
+        ctx.save_for_backward(xq, gq, xk, gk)
+        ctx.eps = eps
+        return _rmsnorm_pair(xq, gq, xk, gk, eps)
+
+    @staticmethod
+    def backward(ctx, dyq, dyk):
+        xq, gq, xk, gk = ctx.saved_tensors
+        dxq, dgq, dxk, dgk = rmsnorm_pair_bwd(
+            xq, gq, dyq.contiguous(), xk, gk, dyk.contiguous(), eps=ctx.eps)
+        return dxq, dgq.to(gq.dtype), dxk, dgk.to(gk.dtype), None
+
+
+def rmsnorm(x: torch.Tensor, gain: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x ``[T, D]`` and gain ``[D]``, both float32 or both bfloat16 ->
+    ``[T, D]`` in x's dtype; one launch on the card. Differentiable: with
+    autograd on and an input that requires a gradient, the backward runs
+    :func:`rmsnorm_bwd`."""
+    if _wants_grad(x, gain):
+        return _RMSNorm.apply(x, gain, eps)
+    return _rmsnorm(x, gain, eps)
+
+
+def rmsnorm_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
+                 gk: torch.Tensor, *, eps: float = 1e-6
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(rmsnorm(xq, gq), rmsnorm(xk, gk))`` for xq ``[T_q, D]`` and xk
+    ``[T_k, D]`` of one dtype, in one launch on the card (a model's per-head
+    q and k norms); on the CPU, two calls of the plain version.
+    Differentiable as :func:`rmsnorm`, through :func:`rmsnorm_pair_bwd`."""
+    if _wants_grad(xq, gq, xk, gk):
+        return _RMSNormPair.apply(xq, gq, xk, gk, eps)
+    return _rmsnorm_pair(xq, gq, xk, gk, eps)
+
+
+def _bwd_launch(x, gain, dy, xk=None, gk=None, dyk=None, eps=1e-6):
+    """The backward kernel's two launches for one tensor, or for the pair
+    when ``xk`` is given; returns (dx, dgain[, dxk, dgk])."""
+    partial_rows = checks.launcher(BWD_KERNEL, "rmsnorm_bwd_partial_rows",
+                                   [ctypes.c_int])
+    pair = xk is not None
+    code = (_check_pair(x, gain, xk, gk, BWD_KERNEL) if pair
+            else _check(x, gain, "x", BWD_KERNEL))
+    checks.check(dy, "dy", x.dtype, x.shape, x.device)
+    if pair:
+        checks.check(dyk, "dyk", xk.dtype, xk.shape, xk.device)
+    d = x.shape[1]
+    t_k = xk.shape[0] if pair else 0
+    rows = partial_rows(x.shape[0]) + partial_rows(t_k)
+    partial = torch.empty((max(rows, 1), d), dtype=torch.float32,
+                          device=x.device)
+    dx = torch.empty_like(x)
+    dg = torch.empty(d, dtype=torch.float32, device=x.device)
+    dxk = torch.empty_like(xk) if pair else None
+    dgk = torch.empty(d, dtype=torch.float32, device=x.device) if pair \
+        else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = checks.launcher(BWD_KERNEL, "rmsnorm_pair_bwd_launch",
+                         _BWD_PAIR_ARGTYPES)
+    checks.run(BWD_KERNEL, fn, x.device,
+               x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+               dg.data_ptr(), x.shape[0], ptr(xk), ptr(gk), ptr(dyk),
+               ptr(dxk), ptr(dgk), t_k, partial.data_ptr(), d, float(eps),
+               code)
+    launch_counts[BWD_KERNEL] += BWD_LAUNCHES
+    return (dx, dg, dxk, dgk) if pair else (dx, dg)
+
+
+def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`rmsnorm` at x ``[T, D]`` and gain ``[D]``
+    for the output gradient dy ``[T, D]`` (all one dtype, contiguous):
+    (dx in x's dtype, dgain float32). Two launches on the card (the rows,
+    then the gain's reduction in a fixed order: no float atomics); the plain
+    backward on the CPU."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_plain(x, gain, dy, eps)
+    return _bwd_launch(x, gain, dy, eps=eps)
+
+
+def rmsnorm_pair_bwd(xq: torch.Tensor, gq: torch.Tensor, dyq: torch.Tensor,
+                     xk: torch.Tensor, gk: torch.Tensor, dyk: torch.Tensor,
+                     *, eps: float = 1e-6):
+    """The gradient of :func:`rmsnorm_pair`: (dxq, dgq, dxk, dgk), both
+    tensors in the same two launches on the card; two plain backwards on
+    the CPU."""
+    if xq.device.type == "cpu":
+        return (*rmsnorm_bwd_plain(xq, gq, dyq, eps),
+                *rmsnorm_bwd_plain(xk, gk, dyk, eps))
+    return _bwd_launch(xq, gq, dyq, xk, gk, dyk, eps=eps)

@@ -14,3 +14,21 @@ def rmsnorm_plain(x: torch.Tensor, gain: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * gain.to(torch.float32)).to(x.dtype)
+
+
+def rmsnorm_bwd_plain(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-6):
+    """The gradient of :func:`rmsnorm_plain` as an explicit formula (the
+    backward kernel ``csrc/rmsnorm_bwd.cu``'s plain version): with
+    x^ = x * r and r = rsqrt(mean(x^2) + eps), all in float32,
+    dx = r * (dy * g - x^ * mean(dy * g * x^)) in x's dtype and
+    dgain = the sum of dy * x^ over every leading dimension, float32."""
+    d = x.shape[-1]
+    xf, dyf = x.to(torch.float32), dy.to(torch.float32)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dyg = dyf * gain.to(torch.float32)
+    c = torch.mean(dyg * xhat, dim=-1, keepdim=True)
+    dx = (r * (dyg - xhat * c)).to(x.dtype)
+    dgain = (dyf * xhat).reshape(-1, d).sum(dim=0)
+    return dx, dgain

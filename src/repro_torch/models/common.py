@@ -1,6 +1,7 @@
 """Shared model-substrate primitives of the port (reference
 ``src/repro/models/common.py``): the parameter initialiser, norms,
-activations, rotary position embeddings and the vocab-padding mask.
+activations, rotary position embeddings, the vocab-padding mask and the
+training losses.
 
 Parameters are drawn from an explicit ``torch.Generator`` on the
 generator's own device (the CPU for the ResNets and the tests; the card for
@@ -10,7 +11,14 @@ differs from ``jax.random`` bit for bit (two different generators), the
 distribution is the same.
 
 ``rms_norm`` and ``rms_norm_pair`` go through the RMSNorm kernel's wrappers:
-the plain version on a CPU tensor, the CUDA kernel on a card tensor.
+the plain version on a CPU tensor, the CUDA kernel on a card tensor; when a
+gradient is wanted, their backward is the RMSNorm backward kernel's.
+
+Parameters are made with ``requires_grad=False``: serving needs no graph.
+Training (``repro_torch.runtime.trainer``) keeps float32 master values of
+its own, which require gradients, and runs a model on them cast to
+``cfg.dtype`` (``cast_floats``), as the reference casts its float32 values
+at the forward's entry.
 
 A block's parameters are a nested dict in the reference; ``ParamTree``
 keeps that nesting as a module, so the state dict's keys are the
@@ -21,7 +29,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -161,8 +169,11 @@ def rope_rotation(positions: torch.Tensor, head_dim: int,
 def prefix_rotation(s: int, head_dim: int, theta: float,
                     device: torch.device) -> torch.Tensor:
     """``rope_rotation`` of positions 0..s-1, made once per (s, head_dim,
-    theta, device): every layer of every prefill shares it."""
-    return rope_rotation(torch.arange(s, device=device), head_dim, theta)
+    theta, device): every layer of every prefill shares it. It is made with
+    inference mode off, so that a rotation first made while serving (under
+    ``torch.inference_mode``) can later be saved for a training backward."""
+    with torch.inference_mode(False):
+        return rope_rotation(torch.arange(s, device=device), head_dim, theta)
 
 
 def rotate(x: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
@@ -193,3 +204,43 @@ def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
         return logits
     keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
     return logits.masked_fill(~keep, -1e30)
+
+
+def cast_floats(values: Mapping[str, torch.Tensor],
+                dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """Float leaves cast to the compute dtype, the rest as they are (mixed
+    precision: the float32 master copy stays with the optimizer; the
+    forward runs on the cast, and the gradient reaches the master through
+    the cast in float32)."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in values.items()}
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token-level CE. logits ``[..., V]`` in float32, labels int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def weighted_exit_loss(per_exit_nll: Sequence[torch.Tensor],
+                       weights: Sequence[float]) -> torch.Tensor:
+    """Early-exit training objective: weighted sum of per-exit CE losses,
+    the weights normalised to sum to 1 in float32.
+
+    The paper trains every exit head jointly; the standard weighting puts
+    full weight on the final head and smaller weight on early heads.
+    """
+    w = torch.tensor(weights, dtype=torch.float32)
+    w = (w / torch.sum(w)).tolist()
+    return sum(wi * li for wi, li in zip(w, per_exit_nll))

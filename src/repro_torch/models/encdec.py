@@ -31,6 +31,7 @@ from repro_torch.models.transformer import (
     EarlyExitLM,
     LMConfig,
     layer_cache,
+    remat_call,
     segment_sizes,
     stack_caches,
 )
@@ -177,6 +178,23 @@ class EncDecLM(EarlyExitLM):
         if caches is None and not make_cache:
             return h, None
         return h, stack_caches(new, caches)
+
+    def _train_layer(self, blk: DecoderBlock, h: torch.Tensor,
+                     enc_out: torch.Tensor) -> torch.Tensor:
+        return self._layer_apply(blk, h, enc_out, None, False)[0]
+
+    def _train_trunk(self, batch: Dict[str, torch.Tensor]):
+        """The encoder, then every decoder segment (layers under
+        ``remat_call``); returns (h at each exit, None: no MoE)."""
+        enc_out = self.encode(batch["src_embeds"])
+        h = self._embed(batch)
+        hs = []
+        for seg in self.segments:
+            for blk in seg:
+                h = remat_call(self._train_layer, self.cfg.remat, blk, h,
+                               enc_out)
+            hs.append(h)
+        return hs, None
 
     def trunk(self, batch: Dict[str, torch.Tensor], exit_idx: int,
               make_cache: bool = False):

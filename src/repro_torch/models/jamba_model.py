@@ -25,6 +25,7 @@ from repro_torch.models.transformer import (
     EarlyExitLM,
     LMConfig,
     layer_cache,
+    remat_call,
     segment_sizes,
     stack_caches,
 )
@@ -100,6 +101,15 @@ class JambaLM(EarlyExitLM):
                        ) -> Tuple[torch.Tensor, Optional[dict]]:
         """One sublayer; with ``keep_state`` (prefill or decode) its new
         cache or state comes back, else None."""
+        h, mc, _ = self._sublayer(sub, kind, h, cache, keep_state)
+        return h, mc
+
+    def _sublayer(self, sub: Sublayer, kind: Tuple[str, str],
+                  h: torch.Tensor, cache: Optional[dict], keep_state: bool
+                  ) -> Tuple[torch.Tensor, Optional[dict],
+                             Optional[torch.Tensor]]:
+        """:meth:`sublayer_apply` and the MoE aux loss (None for a dense
+        feed-forward)."""
         c = self.cfg
         mixer, ffn = kind
         x = rms_norm(h, sub.norm1, c.norm_eps)
@@ -111,11 +121,38 @@ class JambaLM(EarlyExitLM):
             out, mc = mamba(sub.mixer, x, self.mamba_config(), state=cache)
         h = h + out
         x = rms_norm(h, sub.norm2, c.norm_eps)
+        aux = None
         if ffn == "moe":
-            out, _ = moe(sub.ffn, x, c.moe_config())
+            out, aux = moe(sub.ffn, x, c.moe_config())
         else:
             out = mlp(sub.ffn, x, c.mlp_config())
-        return h + out, (mc if keep_state else None)
+        return h + out, (mc if keep_state else None), aux
+
+    def _train_superblock(self, sb: nn.ModuleDict, h: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One superblock without states; returns (h, its MoE aux sum)."""
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j, kind in enumerate(sub_kinds(self.cfg)):
+            h, _, aux = self._sublayer(sb[f"sub{j}"], kind, h, None, False)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return h, aux_total
+
+    def _train_trunk(self, batch: Dict[str, torch.Tensor]):
+        """Every segment (superblocks under ``remat_call``); returns (h at
+        each exit, the MoE aux summed per segment, then over segments)."""
+        h = self._embed(batch)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        hs, aux_total = [], zero
+        for seg in self.segments:
+            seg_aux = zero
+            for sb in seg:
+                h, aux = remat_call(self._train_superblock, self.cfg.remat,
+                                    sb, h)
+                seg_aux = seg_aux + aux
+            aux_total = aux_total + seg_aux
+            hs.append(h)
+        return hs, aux_total
 
     def _superblock_apply(self, sb: nn.ModuleDict, h: torch.Tensor,
                           cache: Optional[dict], keep_state: bool

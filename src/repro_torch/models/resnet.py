@@ -173,3 +173,30 @@ class EarlyExitResNet(nn.Module):
 
     def forward(self, x: torch.Tensor, exit_idx: int = 3) -> torch.Tensor:
         return self.forward_exit(x, exit_idx)
+
+    def train_loss(self, batch, exit_weights=(1.0, 1.0, 1.0, 1.0)):
+        """Joint training of all exits (paper Sec. IV-A; the reference's
+        ``train_loss``): batch ``{"images": [B, 32, 32, 3] (NHWC),
+        "labels": [B]}``; the loss is the exits' mean NLL weighted by
+        ``exit_weights`` normalised to 1. Returns (loss, metrics) with
+        ``loss``, ``nll_exit{i}`` and ``acc_exit{i}``."""
+        x, labels = batch["images"], batch["labels"].long()
+        h = x.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+        h = F.relu(self.stem_norm(self.stem(h)))
+        losses, accs = [], []
+        for s in range(4):
+            for blk in getattr(self, f"layer{s + 1}"):
+                h = blk(h)
+            logits = h.mean(dim=(2, 3)) @ getattr(self, f"exit_head{s}")
+            logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+            losses.append(-torch.gather(logp, 1, labels[:, None]).mean())
+            accs.append(torch.mean(
+                (torch.argmax(logits, -1) == labels).to(torch.float32)))
+        w = torch.tensor(exit_weights, dtype=torch.float32)
+        w = (w / torch.sum(w)).tolist()
+        loss = sum(wi * li for wi, li in zip(w, losses))
+        return loss, {
+            "loss": loss,
+            **{f"nll_exit{i}": l for i, l in enumerate(losses)},
+            **{f"acc_exit{i}": a for i, a in enumerate(accs)},
+        }

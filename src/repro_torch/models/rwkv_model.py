@@ -26,6 +26,7 @@ from repro_torch.models.transformer import (
     EarlyExitLM,
     LMConfig,
     layer_cache,
+    remat_call,
     segment_sizes,
     stack_caches,
 )
@@ -86,6 +87,20 @@ class RWKV6LM(EarlyExitLM):
                 blk, h, None if states is None else layer_cache(states, i))
             new.append(st)
         return h, (stack_caches(new) if keep_state else None)
+
+    def _train_block(self, blk: RWKVBlock, h: torch.Tensor) -> torch.Tensor:
+        return self._block_apply(blk, h, None)[0]
+
+    def _train_trunk(self, batch: Dict[str, torch.Tensor]):
+        """Every segment (blocks under ``remat_call``); returns (h at each
+        exit, None: no MoE)."""
+        h = self._embed(batch)
+        hs = []
+        for seg in self.segments:
+            for blk in seg:
+                h = remat_call(self._train_block, self.cfg.remat, blk, h)
+            hs.append(h)
+        return hs, None
 
     def trunk(self, batch: Dict[str, torch.Tensor], exit_idx: int,
               make_cache: bool = False):

@@ -38,6 +38,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
@@ -53,9 +54,11 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.common import (
     ParamTree,
+    cross_entropy,
     make_param,
     mask_padded_vocab,
     rms_norm,
+    weighted_exit_loss,
 )
 from repro_torch.models.moe import (
     MLPConfig,
@@ -296,6 +299,19 @@ def _block_apply(blk: Block, h: torch.Tensor, cfg: LMConfig,
     return h + ffn_out, new_cache, aux
 
 
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)``; where ``remat`` is not ``"none"`` and a gradient is
+    being taken, under ``torch.utils.checkpoint``, so that the backward
+    recomputes ``fn``'s activations instead of keeping them. The reference's
+    ``"dots"`` policy keeps the products' outputs and recomputes the rest;
+    here ``"dots"`` and ``"full"`` alike recompute the whole of ``fn`` (a
+    block): the gradient is the same, only memory and time change. The
+    recomputation launches the block's forward kernels a second time."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def stack_caches(caches: List[dict], into: Optional[dict] = None) -> dict:
     """Per-layer caches (nested dicts of tensors) stacked on a leading
     layers axis, as the reference's scan stacks them. Where every layer's
@@ -335,12 +351,18 @@ class EarlyExitLM(nn.Module):
 
     Weights are drawn from ``generator`` (default: seed 0 on ``device``) at
     the reference's scales, directly on ``device`` (the card unless the
-    caller passes ``"cpu"``), in ``cfg.dtype``. Parameters are frozen: the
-    port serves and does not train. A family sets its parameters up in
+    caller passes ``"cpu"``), in ``cfg.dtype``, with
+    ``requires_grad=False``: serving builds no graph. Training turns
+    gradients on only for the float32 master values the trainer owns
+    (``repro_torch.runtime.trainer``), and runs :meth:`train_loss` on them
+    cast to ``cfg.dtype`` in place of these parameters (the serving build's
+    own parameters never change). A family sets its parameters up in
     ``__init__`` (``_draw_embedding`` and ``_draw_unembedding`` draw the
     shared ones) and defines ``trunk(batch, exit_idx, make_cache=False)``:
     the layers up to exit ``exit_idx``, returning (h ``[B, S, D]``, the
-    per-segment caches or None without ``make_cache``).
+    per-segment caches or None without ``make_cache``), and
+    ``_train_trunk(batch)``: every layer, returning (h at each exit, the
+    summed MoE aux loss or None where the family has no MoE).
     """
 
     def __init__(self, cfg: LMConfig,
@@ -440,6 +462,33 @@ class EarlyExitLM(nn.Module):
         return exit_head(h[:, -1, :].contiguous(), self.exit_norms[exit_idx],
                          self.exit_head_weight(), eps=self.cfg.norm_eps)
 
+    # -- training ----------------------------------------------------------
+
+    def train_loss(self, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Joint early-exit LM loss (the reference's ``train_loss``): the
+        cross-entropy of every exit's float32 logits against
+        ``batch["labels"]`` (under ``batch["mask"]`` where given), weighted
+        by ``cfg.exit_weights_`` normalised to 1, plus the MoE aux loss
+        where the family routes. Returns (loss, metrics): ``loss``,
+        ``nll_final``, ``nll_exit{i}`` and, for the dense, MoE and Jamba
+        families, ``moe_aux``. Run it on the model's own parameters, or on
+        others through ``torch.func.functional_call`` (the trainer's
+        way)."""
+        cfg = self.cfg
+        hs, aux = self._train_trunk(batch)
+        labels, mask = batch["labels"], batch.get("mask")
+        per_exit = [cross_entropy(self._head(h, e), labels, mask)
+                    for e, h in enumerate(hs)]
+        loss = weighted_exit_loss(per_exit, cfg.exit_weights_)
+        metrics = {"nll_final": per_exit[-1]}
+        if aux is not None:
+            loss = loss + aux
+            metrics["moe_aux"] = aux
+        metrics["loss"] = loss
+        metrics.update({f"nll_exit{i}": l for i, l in enumerate(per_exit)})
+        return loss, metrics
+
     def _check_cache(self, cache: dict, n_segs: int, exit_idx: int) -> None:
         if len(cache["segments"]) < n_segs:
             raise ValueError(f"the cache holds {len(cache['segments'])} "
@@ -503,6 +552,30 @@ class DecoderLM(EarlyExitLM):
             h, seg_cache = self._run_segment(i, h, make_cache)
             caches.append(seg_cache)
         return h, caches if make_cache else None
+
+    def _train_block(self, blk: Block, h: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h, _, aux = _block_apply(blk, h, self.cfg, make_cache=False)
+        return h, aux
+
+    def _train_trunk(self, batch: Dict[str, torch.Tensor]):
+        """Every segment (blocks under ``remat_call``); returns (h at each
+        exit, the MoE aux summed per segment, then over segments, as the
+        reference's scans sum it)."""
+        cfg = self.cfg
+        h = self._embed(batch)
+        exits = set(cfg.exits)
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        hs, aux_total = [], zero
+        for i, (_, _, end) in enumerate(cfg.segments()):
+            seg_aux = zero
+            for blk in self.segments[i]:
+                h, aux = remat_call(self._train_block, cfg.remat, blk, h)
+                seg_aux = seg_aux + aux
+            aux_total = aux_total + seg_aux
+            if end in exits:
+                hs.append(h)
+        return hs, aux_total
 
     def decode_step(self, token: torch.Tensor, cache: dict, exit_idx: int
                     ) -> Tuple[torch.Tensor, dict]:

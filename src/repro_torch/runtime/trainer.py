@@ -1,0 +1,165 @@
+"""Training step assembly (reference ``src/repro/runtime/trainer.py``): the
+loss and its gradients, gradient accumulation, global-norm clipping and the
+optimizer.
+
+The trainer owns the values it trains: a flat dict ``{name: tensor}`` of
+float32 masters, one per model parameter (``master_values``). A step casts
+them to the model's ``cfg.dtype`` (``cast_floats``; the reference casts its
+float32 values at the forward's entry), runs the model's ``train_loss`` on
+the cast values in place of the model's own parameters
+(``torch.func.functional_call``), and takes the gradients with respect to
+the masters, which therefore arrive in float32 whatever the compute dtype.
+The model's own (serving) parameters are never read or changed by a step.
+
+``train_step(values, opt_state, batch, step_no)`` returns new values and a
+new optimizer state; nothing is updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from repro_torch.models.common import cast_floats
+from repro_torch.optim import Adafactor, AdamW, Optimizer, clip_by_global_norm
+
+Values = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"
+    lr: float = 3e-4
+    grad_clip: float = 1.0
+    grad_accum: int = 1            # microbatches per step (summed in float32)
+    compress_grads: bool = False   # int8 + error feedback (not read: item 10)
+
+
+def master_values(model: nn.Module) -> Values:
+    """Float32 copies of ``model``'s parameters by name, on their device:
+    the masters a trainer owns (the model's parameters stay as they
+    are)."""
+    return {name: p.detach().to(torch.float32).clone()
+            for name, p in model.named_parameters()}
+
+
+class _LossAndGrads(nn.Module):
+    """``model.train_loss`` and its gradients with respect to ``leaves``,
+    both taken inside one ``functional_call``, so that a block under
+    ``torch.utils.checkpoint`` recomputes on the same values in the
+    backward."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, leaves: List[torch.Tensor]):
+        loss, metrics = self.model.train_loss(batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                grads)
+
+
+def make_grad_fn(model: nn.Module) -> Callable:
+    """``fn(values, batch) -> (loss, metrics, grads)``: ``model``'s
+    ``train_loss`` on ``values`` (float32 masters by parameter name) cast
+    to ``cfg.dtype``, and its float32 gradient with respect to each master
+    (zeros where the loss does not reach one). Loss and metrics are
+    detached."""
+    runner = _LossAndGrads(model)
+    dtype = getattr(model.cfg, "dtype", torch.float32)
+
+    def loss_and_grads(values: Values, batch):
+        names = list(values)
+        leaves = [values[k].detach().requires_grad_(True) for k in names]
+        cast = cast_floats(dict(zip(names, leaves)), dtype)
+        with torch.enable_grad():
+            loss, metrics, grads = functional_call(
+                runner, {f"model.{k}": v for k, v in cast.items()},
+                (batch, leaves))
+        grads = {k: (torch.zeros_like(values[k]) if g is None else g)
+                 for k, g in zip(names, grads)}
+        return loss, metrics, grads
+
+    return loss_and_grads
+
+
+def make_train_step(
+    model: nn.Module,
+    optimizer: Optimizer,
+    grad_clip: float = 1.0,
+    grad_accum: int = 1,
+) -> Callable:
+    """Build ``train_step(values, opt_state, batch, step_no) -> (values,
+    opt_state, metrics)`` for ``model`` (any model with ``train_loss(batch)
+    -> (loss, metrics)``); metrics gain ``grad_norm`` (before clipping).
+
+    With ``grad_accum > 1`` the batch is split along dim 0 into that many
+    microbatches, run one after another; their float32 gradients are
+    summed and divided by the count, and the loss is their mean (metrics
+    then hold ``loss`` and ``grad_norm`` only, as the reference's). A
+    parameter the loss does not reach gets a zero gradient.
+    """
+    loss_and_grads = make_grad_fn(model)
+
+    def train_step(values: Values, opt_state, batch, step_no: int):
+        if grad_accum <= 1:
+            loss, metrics, grads = loss_and_grads(values, batch)
+        else:
+            grads = {k: torch.zeros(v.shape, dtype=torch.float32,
+                                    device=v.device)
+                     for k, v in values.items()}
+            loss_sum = None
+            for i in range(grad_accum):
+                micro = {k: x.reshape(grad_accum, x.shape[0] // grad_accum,
+                                      *x.shape[1:])[i]
+                         for k, x in batch.items()}
+                loss, _, g = loss_and_grads(values, micro)
+                grads = {k: grads[k] + g[k] for k in grads}
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+            grads = {k: g / grad_accum for k, g in grads.items()}
+            metrics = {"loss": loss_sum / grad_accum}
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        new_values, new_opt = optimizer.step(values, grads, opt_state,
+                                             step_no)
+        return new_values, new_opt, {**metrics, "grad_norm": gnorm}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Optimizer-state sharding: needs the port's mesh
+# ---------------------------------------------------------------------------
+
+def opt_state_shardings(*args, **kwargs):
+    """The reference's sharding tree for an optimizer state: not ported. It
+    needs the port's device mesh (torch ``DeviceMesh``), ROADMAP Queue 1
+    item 10."""
+    raise NotImplementedError(
+        "opt_state_shardings needs the port's device mesh (torch "
+        "DeviceMesh), ROADMAP Queue 1 item 10")
+
+
+def abstract_opt_state(*args, **kwargs):
+    """The reference's ``jax.eval_shape`` of ``opt.init``: not ported. It
+    needs shapes without storage (meta tensors) beside the mesh, ROADMAP
+    Queue 1 item 10."""
+    raise NotImplementedError(
+        "abstract_opt_state needs the port's shape-only evaluation (meta "
+        "tensors) and device mesh, ROADMAP Queue 1 item 10")
+
+
+def pick_optimizer_for(cfg, lr=3e-4) -> Optimizer:
+    """Adafactor for >=50B params (factored state is what fits in device
+    memory); AdamW otherwise."""
+    big = cfg.arch_id in ("deepseek-v3-671b", "jamba-v0.1-52b")
+    return Adafactor(lr=lr) if big else AdamW(lr=lr)
+
+
+__all__ = ["TrainConfig", "abstract_opt_state", "make_grad_fn",
+           "make_train_step",
+           "master_values", "opt_state_shardings", "pick_optimizer_for"]

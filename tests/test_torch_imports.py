@@ -44,11 +44,16 @@ def test_port_package_is_present():
                    "core/telemetry.py", "core/cluster.py",
                    "runtime/router.py", "runtime/fault_tolerance.py",
                    "core/simfast.py", "core/clusterfast.py",
-                   "core/seedband.py"):
+                   "core/seedband.py", "optim/optimizers.py",
+                   "data/pipeline.py", "runtime/trainer.py",
+                   "runtime/checkpoint.py", "launch/train.py"):
         assert module in names, module
-    assert (ROOT / "src" / "repro_torch" / "csrc" / "stability_score.cu").exists()
+    for source in ("stability_score.cu", "rmsnorm_bwd.cu",
+                   "flash_attention_bwd.cu"):
+        assert (ROOT / "src" / "repro_torch" / "csrc" / source).exists()
     assert [p.name for p in EXAMPLES] == ["quickstart.py",
-                                          "serve_multi_model.py"]
+                                          "serve_multi_model.py",
+                                          "train_early_exit_lm.py"]
 
 
 @pytest.mark.parametrize(
