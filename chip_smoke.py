@@ -89,7 +89,15 @@ early-exit LMs (served quanta and KV-cache decode):
    time on the host, device time by kernel class, idle share, peak memory;
    decode-attention and rmsnorm launches must equal the count the steps
    imply, and the profiled step must run one decode-attention kernel a
-   layer;
+   layer; then (PR 26) the cost phase (``cost``): the NCCL host mesh and
+   ``ElasticMesh.build`` on the card, ``compressed_psum`` on a card tensor
+   (bitwise its one-rank value and the CPU's), the roofline L(m, e, B)
+   table of phase 10's 48 cells counted shape-only on the one-device mesh
+   (``launch/roofline.py::roofline_profile``; no measured P95 may be below
+   its ``t_star``), the ``cuda`` simulator on the roofline table, the
+   measured table and roofline plans against measured service (stability
+   launches = scoring rounds), and ``qwen3-8b`` ``train_4k`` lowered on the
+   (16, 16) production mesh (``launch/dryrun.py::lower_cell``);
 12. the rest of the model zoo (``lm_zoo``): the LM kernels against their
    plain versions at the zoo's new shapes (GQA groups 9 and 1, head dim
    64, the Seamless encoder's non-causal S = 1024, LLaVA's 2880 patches,
@@ -835,6 +843,165 @@ def phase_sim(device):
                      "cuda": m32.p95_latency * 1e3},
              completed=m64.num_completed)
     return total_launches
+
+
+# ---------------------------------------------------------------------------
+# The cost phase: mesh, collectives, roofline table, production-mesh cell
+# ---------------------------------------------------------------------------
+
+COST_HORIZON_S = 3.0
+COST_CELL = ("qwen3-8b", "train_4k")   # lowered on the (16, 16) mesh
+# its flops a device x 256 over the 6ND model flops: 1.508 on the CPU
+# (torch 2.13); replicated attention or activations would be several times
+COST_FLOPS_BAND = (1.0, 2.0)
+
+
+def _cost_mesh_checks(device, card):
+    """(a) The host mesh and ``ElasticMesh.build`` on the card (NCCL, one
+    rank), and ``compressed_psum`` on a card tensor: with one rank it is
+    ``dequantize_int8(*quantize_int8(x))`` bitwise, and the CPU's result."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.collectives import (
+        compressed_psum,
+        dequantize_int8,
+        quantize_int8,
+    )
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.fault_tolerance import ElasticMesh
+
+    mesh = make_host_mesh(device=device)
+    elastic, accum = ElasticMesh(model_axis=1).build(device=device)
+    check(tuple(elastic.shape) == (1, 1) and accum == 16,
+          f"ElasticMesh(1).build(): {tuple(elastic.shape)}, accum {accum}")
+    gen = torch.Generator().manual_seed(0)
+    x_cpu = torch.randn((4096, 1024), generator=gen) * 3.0
+    x = x_cpu.to(device)
+    got = compressed_psum(x)
+    want = dequantize_int8(*quantize_int8(x))
+    cpu = dequantize_int8(*quantize_int8(x_cpu))
+    check(torch.equal(got, want), "compressed_psum != its one-rank value")
+    check(torch.equal(got.cpu(), cpu), "compressed_psum differs from the CPU")
+    emit("cost_mesh", card=card, backend=dist.get_backend(),
+         host_mesh=list(mesh.shape), host_mesh_device=mesh.device_type,
+         elastic_mesh=list(elastic.shape), elastic_accum=accum,
+         psum_shape=list(x.shape), psum_bitwise=True,
+         psum_max_abs_err_vs_x=float((got - x).abs().max()))
+    return mesh
+
+
+def phase_cost(device, configs, measured, horizon=COST_HORIZON_S,
+               cell=COST_CELL):
+    """(a) mesh and collectives; (b) the roofline L(m, e, B) table of the
+    LM cell's three models counted shape-only on a one-device mesh
+    (``repro_torch.launch.roofline.roofline_profile``) held under the
+    measured table: no cell may measure below its ``t_star``; (c) the
+    simulator with the ``cuda`` backend on each table (and planning on the
+    roofline table against the measured service times), stability launches
+    = scoring rounds; (d) ``lower_cell`` of ``cell`` on the (16, 16)
+    production mesh. Returns the stability kernel's launches of (c)."""
+    import torch
+
+    from repro_torch.core import (
+        SchedulerConfig,
+        ServingSimulator,
+        make_scheduler,
+        poisson_arrivals,
+    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_production_mesh, release_mesh
+    from repro_torch.launch.roofline import roofline_profile
+
+    on_card = torch.device(device).type == "cuda"
+    card = smi("name,power.limit")
+    t_phase = time.perf_counter()
+    mesh = _cost_mesh_checks(device, card)
+
+    # (b) the roofline table beside the measured one
+    t0 = time.perf_counter()
+    table, counts = roofline_profile(
+        configs, measured.batch_sizes, LM_PROMPT,
+        exit_names=measured.exit_names, mesh=mesh,
+        accuracy=measured.accuracy)
+    count_s = time.perf_counter() - t0
+    check(table.model_names == measured.model_names,
+          "roofline and measured tables name different models")
+    rows, below = [], []
+    for (m, e, b), c in sorted(counts.items()):
+        p95 = float(measured.latency[m, e, measured.batch_sizes.index(b)])
+        rows.append(dict(model=measured.model_names[m], exit=e, batch=b,
+                         flops=c["flops"], bytes=c["bytes"],
+                         t_star_ms=c["t_star"] * 1e3, p95_ms=p95 * 1e3,
+                         ratio=p95 / c["t_star"],
+                         bound=("compute" if c["compute_s"] >= c["memory_s"]
+                                else "memory")))
+        if p95 < c["t_star"]:
+            below.append(rows[-1])
+    emit("cost_roofline", card=card, count_seconds=count_s,
+         peak_flops=9.89e14, hbm_bytes_per_s=3.35e12, cells=rows,
+         min_ratio=min(r["ratio"] for r in rows),
+         roofline_ms=(table.latency * 1e3).tolist())
+    check(not below, f"{len(below)} cells measure below their roofline "
+          f"t_star (a miscount): {below[:3]}")
+
+    # (c) the scheduler on both tables, at the LM cell's 3:2:1 rates
+    split = np.array([3.0, 2.0, 1.0]) / 6.0
+    per_request = measured.latency[:, -1, -1] / LM_BATCHES[-1]
+    rates = (LM_BUSY / float(np.sum(split * per_request)) * split).tolist()
+    arrivals = poisson_arrivals(rates, horizon, seed=0)
+    runs, launches_total = {}, 0
+    for name, plan, truth in (("roofline", table, table),
+                              ("measured", measured, measured),
+                              ("roofline_on_measured", table, measured)):
+        cfg = SchedulerConfig(slo=SLO, max_batch=LM_BATCHES[-1],
+                              backend="cuda", device=device)
+        sched = make_scheduler("edgeserving", plan, cfg)
+        rounds = record_rounds(sched)
+        sim = ServingSimulator(sched, truth)
+        reset_launch_counts()
+        res = sim.run(arrivals, horizon)
+        launches = launch_counts["stability_score"]
+        scored = len([r for r in rounds if r[0].nonempty()])
+        check(launches == (scored if on_card else 0),
+              f"cost/{name}: stability launches {launches} != scoring "
+              f"rounds {scored}")
+        launches_total += launches
+        m = res.metrics
+        runs[name] = dict(violation_ratio=m.violation_ratio,
+                          p95_ms=m.p95_latency * 1e3,
+                          mean_exit_depth=m.mean_exit_depth,
+                          completed=m.num_completed, rounds=len(rounds),
+                          scoring_rounds=scored, kernel_launches=launches)
+    emit("cost_sched", card=card, rates=rates, horizon_s=horizon,
+         arrivals=len(arrivals), slo_ms=SLO * 1e3, runs=runs)
+
+    # (d) one production-mesh cell
+    release_mesh()
+    prod = make_production_mesh(multi_pod=False)
+    rec = lower_cell(cell[0], cell[1], prod, False)
+    release_mesh()
+    emit("cost_dryrun", card=card, arch=rec["arch"], shape=rec["shape"],
+         mesh=rec["mesh"], rules=rec["rules"],
+         flops_per_device=rec["hlo_metrics"]["flops"],
+         bytes_per_device=rec["hlo_metrics"]["bytes"],
+         collective_bytes=rec["collectives"]["bytes"],
+         static_gib_per_device=rec["bytes_per_device_static"] / 2**30,
+         model_flops=rec["model_flops"],
+         lower_s=rec["lower_s"], run_s=rec["compile_s"])
+    # the 6ND model flops a device are the floor; the exits' heads and the
+    # attention add a third at this depth, and a count several times the
+    # floor is replicated work (see COST_FLOPS_BAND)
+    ratio = rec["hlo_metrics"]["flops"] * rec["num_devices"] / rec[
+        "model_flops"]
+    emit("cost_dryrun_check", card=card, flops_over_model_flops=ratio,
+         band=list(COST_FLOPS_BAND))
+    check(COST_FLOPS_BAND[0] <= ratio <= COST_FLOPS_BAND[1],
+          f"the production cell counts {ratio:.3f}x its model flops, "
+          f"outside {COST_FLOPS_BAND}")
+    emit("cost_phase", card=card, seconds=time.perf_counter() - t_phase)
+    return launches_total
 
 
 # ---------------------------------------------------------------------------
@@ -2172,7 +2339,7 @@ def phase_lm_serving(configs, device, horizon=HORIZON_S):
               f"decisions")
     shadow_check("lm_shadow", scored, max_batch=LM_BATCHES[-1])
     lm_breakdown(served)
-    return launches, served
+    return launches, served, table
 
 
 def _kernel_class(name: str) -> str:
@@ -3809,10 +3976,11 @@ BWD_KERNEL_ROWS = {
 def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
                    lm_kernels, lm_launches, decode_launches, multi_launches,
                    multi_timings, zoo_launches, zoo_kernels, train_launches,
-                   train_kernels):
+                   train_kernels, cost_launches):
     """One entry per kernel of the port's paths, with every key of the
     contract; the stability score's launches are the three serving runs',
-    the simulated cells' and the fleet cells', and the LM kernels' those of
+    the simulated cells', the fleet cells' and the cost phase's
+    simulations, and the LM kernels' those of
     the LM serve, the decode phase, the serve_multi_model run (whose timed
     shapes join each row's ``cases``) and the training loop. The backward
     kernels replace no TPU kernel: ``replaces`` names the jnp form whose
@@ -3827,13 +3995,14 @@ def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
         "launches": (resnet_launches + sim_launches + fleet_launches
                      + lm_launches["stability_score"]
                      + zoo_launches["stability_score"]
-                     + multi_launches["stability_score"]),
+                     + multi_launches["stability_score"] + cost_launches),
         "launches_resnet_serve": resnet_launches,
         "launches_sim": sim_launches,
         "launches_fleet": fleet_launches,
         "launches_lm_serve": lm_launches["stability_score"],
         "launches_lm_zoo": zoo_launches["stability_score"],
         "launches_lm_multi": multi_launches["stability_score"],
+        "launches_cost": cost_launches,
         "max_abs_err": kernel["max_abs_err"],
         "max_rel_err": kernel["max_rel_err"],
         "ms": t3["ms"],
@@ -3932,10 +4101,11 @@ def main() -> int:
     phase_scan("cuda")
     phase_lm_models(lm_configs, "cuda")
     phase_lm_decode_models(lm_configs, "cuda")
-    lm_launches, served = phase_lm_serving(lm_configs, "cuda")
+    lm_launches, served, lm_table = phase_lm_serving(lm_configs, "cuda")
     decode_launches = phase_lm_decode(served, "cuda")
     del served
     torch.cuda.empty_cache()
+    cost_launches = phase_cost("cuda", lm_configs, lm_table)
     zoo_launches, zoo_kernels = phase_lm_zoo("cuda")
     multi_launches, multi_timings = phase_lm_multi("cuda")
     torch.cuda.empty_cache()
@@ -3943,7 +4113,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_summary(
         kernel, resnet_launches, sim_launches, fleet_launches, lm_kernels,
         lm_launches, decode_launches, multi_launches, multi_timings,
-        zoo_launches, zoo_kernels, train_launches, train_kernels)}),
+        zoo_launches, zoo_kernels, train_launches, train_kernels,
+        cost_launches)}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,8 @@
 """Model configurations of the port: the paper's ResNets (``FULL``,
 ``SMOKE``) and the ten early-exit LMs served beside them (``get_config``,
-``ARCH_IDS`` in the reference's order).
-
-The reference's ``configs/shapes.py`` (the dry-run's shape table) is not
-ported: it needs ``jax.eval_shape``'s counterpart, which comes with the
-static analysis."""
+``ARCH_IDS`` in the reference's order), and the dry-run's shape table
+(``SHAPES``, ``applicable``, ``skip_reason``, ``input_specs``; meta
+tensors in place of ``jax.ShapeDtypeStruct``)."""
 
 from __future__ import annotations
 
@@ -23,6 +21,13 @@ from repro_torch.configs import (
     starcoder2_7b,
 )
 from repro_torch.configs.edgeserving_resnets import FULL, SMOKE
+from repro_torch.configs.shapes import (
+    SHAPES,
+    ShapeSpec,
+    applicable,
+    input_specs,
+    skip_reason,
+)
 from repro_torch.models.transformer import LMConfig
 
 _MODULES = {
@@ -54,4 +59,5 @@ def all_configs(smoke: bool = False) -> Dict[str, LMConfig]:
     return {a: get_config(a, smoke) for a in ARCH_IDS}
 
 
-__all__ = ["ARCH_IDS", "FULL", "SMOKE", "all_configs", "get_config"]
+__all__ = ["ARCH_IDS", "FULL", "SHAPES", "SMOKE", "ShapeSpec", "all_configs",
+           "applicable", "get_config", "input_specs", "skip_reason"]

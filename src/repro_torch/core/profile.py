@@ -289,3 +289,38 @@ class ProfileTable:
     def paper_jetson_orin_nano() -> "ProfileTable":
         """Jetson Orin Nano-calibrated: ~7x slower; paper uses tau=100 ms."""
         return ProfileTable.paper_rtx3080().scaled(7.0, "jetson-orin-nano-calibrated")
+
+    @staticmethod
+    def from_roofline(
+        model_names: Sequence[str],
+        exit_names: Sequence[str],
+        batch_sizes: Sequence[int],
+        terms_fn: Callable[[int, int, int], "tuple[float, float, float]"],
+        accuracy: Optional[np.ndarray] = None,
+        dispatch_overhead_s: float = 15e-6,
+        safety: float = 1.05,
+        meta: Optional[dict] = None,
+    ) -> "ProfileTable":
+        """Analytic card profile: L = safety * (max(3 roofline terms) +
+        overhead).
+
+        ``terms_fn(m, e, B)`` returns (compute_s, memory_s, collective_s) for
+        that configuration, typically the shape-only cost count of the
+        served quantum over the card's peak rates
+        (``repro_torch.launch.graph_analysis``, ``repro_torch.launch.mesh``).
+        """
+        m_n, e_n, b_n = len(model_names), len(exit_names), len(batch_sizes)
+        lat = np.zeros((m_n, e_n, b_n))
+        for mi in range(m_n):
+            for ei in range(e_n):
+                for bi, bsz in enumerate(batch_sizes):
+                    c, h, l = terms_fn(mi, ei, bsz)
+                    lat[mi, ei, bi] = safety * (max(c, h, l) + dispatch_overhead_s)
+        lat = np.maximum.accumulate(lat, axis=2)
+        if accuracy is None:
+            accuracy = np.full((m_n, e_n), np.nan)
+        return ProfileTable(
+            tuple(model_names), tuple(exit_names), tuple(batch_sizes),
+            lat, np.asarray(accuracy, dtype=np.float64),
+            meta={**(meta or {}), "builder": "roofline", "safety": safety},
+        )

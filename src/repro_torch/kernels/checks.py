@@ -6,6 +6,7 @@ import ctypes
 from typing import Sequence
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from repro_torch.kernels import build
 
@@ -50,6 +51,27 @@ def require_16_byte_rows(t: torch.Tensor, name: str) -> None:
             f"{name} (strides {t.stride()}, address {t.data_ptr():#x}) does "
             f"not start every row on 16 bytes, which the kernel's cp.async "
             f"copies need; pass an aligned tensor")
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper takes its kernel's plain version for ``t``: on a
+    CPU tensor (the tests' path) and on a ``meta`` tensor (shape-only
+    evaluation: the dry-run and the cost counter; nothing is launched).
+    A CUDA tensor launches the kernel or raises."""
+    return t.device.type in ("cpu", "meta")
+
+
+def run_plain(kernel: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, the plain version of ``kernel``, through
+    the ``run_plain`` method of the innermost active dispatch mode that has
+    one: a cost count (``repro_torch.launch.graph_analysis.CostCounter``)
+    bills the plain version as the kernel itself, one fused op whose
+    inputs are read once and outputs written once."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        hook = getattr(mode, "run_plain", None)
+        if hook is not None:
+            return hook(kernel, fn, args, kwargs)
+    return fn(*args, **kwargs)
 
 
 def require_cuda(t: torch.Tensor, kernel: str) -> None:

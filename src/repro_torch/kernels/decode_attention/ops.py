@@ -76,8 +76,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D is one of 16, 32, 64, 128; any S.
     """
     _check_shapes(q, k, v, lengths)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths)
+    if checks.runs_plain(q):
+        return checks.run_plain(KERNEL, decode_attention_plain, q, k, v,
+                                lengths)
     checks.require_cuda(q, KERNEL)
     b, h, d = q.shape
     kh, s = k.shape[1], k.shape[2]

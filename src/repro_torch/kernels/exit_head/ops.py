@@ -40,7 +40,7 @@ def exit_head_path(h: torch.Tensor, w: torch.Tensor) -> str:
     the CPU; on the card ``"tensor_core"`` (bfloat16 with 16-byte W rows and
     D <= 5120) or ``"cuda_core"`` (float32, W rows that are not 16-byte
     aligned, or a larger D), as the kernel's C entry dispatches."""
-    if h.device.type == "cpu":
+    if checks.runs_plain(h):
         return "plain"
     code = checks.dtype_code(h, "h")
     tc = _c_query("exit_head_tensor_cores", code, _w_rows_aligned(w),
@@ -57,8 +57,8 @@ def exit_head(h: torch.Tensor, gain: torch.Tensor, w: torch.Tensor, *,
     contiguous -> (argmax ``[T]`` int32, max ``[T]`` float32, lse ``[T]``
     float32). Any T, D and V. ``confidence = exp(max - lse)``.
     """
-    if h.device.type == "cpu":
-        return exit_head_plain(h, gain, w, eps)
+    if checks.runs_plain(h):
+        return checks.run_plain(KERNEL, exit_head_plain, h, gain, w, eps)
     checks.require_cuda(h, KERNEL)
     if h.ndim != 2 or w.ndim != 2:
         raise ValueError("h must be [T, D] and w [D, V]")

@@ -109,8 +109,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+    if checks.runs_plain(q):
+        return checks.run_plain(KERNEL, flash_attention_plain, q, k, v,
+                                causal=causal)
     b, h, kh, s, d = _shapes(q, k, KERNEL)
     code = checks.dtype_code(q, "q")
     _check_strided(q, (("q", q), ("k", k), ("v", v)),
@@ -146,8 +147,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     must be contiguous); dq, dk and dv come back contiguous. On the CPU,
     the plain backward.
     """
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal)
+    if checks.runs_plain(q):
+        return checks.run_plain(BWD_KERNEL, flash_attention_bwd_plain, q, k,
+                                v, out, dout, causal=causal)
     b, h, kh, s, d = _shapes(q, k, BWD_KERNEL)
     code = checks.dtype_code(q, "q")
     _check_strided(q, (("q", q), ("k", k), ("v", v), ("out", out),

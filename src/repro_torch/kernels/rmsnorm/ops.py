@@ -54,8 +54,8 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 
 
 def _rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, gain, eps)
+    if checks.runs_plain(x):
+        return checks.run_plain(KERNEL, rmsnorm_plain, x, gain, eps)
     code = _check(x, gain, "x")
     t, d = x.shape
     out = torch.empty_like(x)
@@ -64,6 +64,15 @@ def _rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
                out.data_ptr(), t, d, float(eps), code)
     launch_counts[KERNEL] += 1
     return out
+
+
+def _plain_pair(xq, gq, xk, gk, eps):
+    return rmsnorm_plain(xq, gq, eps), rmsnorm_plain(xk, gk, eps)
+
+
+def _plain_bwd_pair(xq, gq, dyq, xk, gk, dyk, eps):
+    return (*rmsnorm_bwd_plain(xq, gq, dyq, eps),
+            *rmsnorm_bwd_plain(xk, gk, dyk, eps))
 
 
 def _check_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
@@ -82,8 +91,8 @@ def _check_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
 def _rmsnorm_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
                   gk: torch.Tensor, eps: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    if xq.device.type == "cpu":
-        return rmsnorm_plain(xq, gq, eps), rmsnorm_plain(xk, gk, eps)
+    if checks.runs_plain(xq):
+        return checks.run_plain(KERNEL, _plain_pair, xq, gq, xk, gk, eps)
     code = _check_pair(xq, gq, xk, gk, KERNEL)
     oq, ok = torch.empty_like(xq), torch.empty_like(xk)
     fn = checks.launcher(KERNEL, "rmsnorm_pair_launch", _PAIR_ARGTYPES)
@@ -190,8 +199,9 @@ def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor, *,
     (dx in x's dtype, dgain float32). Two launches on the card (the rows,
     then the gain's reduction in a fixed order: no float atomics); the plain
     backward on the CPU."""
-    if x.device.type == "cpu":
-        return rmsnorm_bwd_plain(x, gain, dy, eps)
+    if checks.runs_plain(x):
+        return checks.run_plain(BWD_KERNEL, rmsnorm_bwd_plain, x, gain, dy,
+                                eps)
     return _bwd_launch(x, gain, dy, eps=eps)
 
 
@@ -201,7 +211,7 @@ def rmsnorm_pair_bwd(xq: torch.Tensor, gq: torch.Tensor, dyq: torch.Tensor,
     """The gradient of :func:`rmsnorm_pair`: (dxq, dgq, dxk, dgk), both
     tensors in the same two launches on the card; two plain backwards on
     the CPU."""
-    if xq.device.type == "cpu":
-        return (*rmsnorm_bwd_plain(xq, gq, dyq, eps),
-                *rmsnorm_bwd_plain(xk, gk, dyk, eps))
+    if checks.runs_plain(xq):
+        return checks.run_plain(BWD_KERNEL, _plain_bwd_pair, xq, gq, dyq, xk,
+                                gk, dyk, eps)
     return _bwd_launch(xq, gq, dyq, xk, gk, dyk, eps=eps)

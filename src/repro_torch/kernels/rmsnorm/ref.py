@@ -23,12 +23,11 @@ def rmsnorm_bwd_plain(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor,
     x^ = x * r and r = rsqrt(mean(x^2) + eps), all in float32,
     dx = r * (dy * g - x^ * mean(dy * g * x^)) in x's dtype and
     dgain = the sum of dy * x^ over every leading dimension, float32."""
-    d = x.shape[-1]
     xf, dyf = x.to(torch.float32), dy.to(torch.float32)
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     xhat = xf * r
     dyg = dyf * gain.to(torch.float32)
     c = torch.mean(dyg * xhat, dim=-1, keepdim=True)
     dx = (r * (dyg - xhat * c)).to(x.dtype)
-    dgain = (dyf * xhat).reshape(-1, d).sum(dim=0)
+    dgain = (dyf * xhat).sum(dim=tuple(range(x.ndim - 1)))
     return dx, dgain

@@ -35,9 +35,10 @@ def stability_scores(w: torch.Tensor, mask: torch.Tensor,
     ``[M, Q]`` per-task deadline matrix; ``clip`` a scalar. Returns ``[N]``
     float32 scores on w's device.
     """
-    if w.device.type == "cpu":
-        return stability_scores_plain(w, mask, cand_latency, cand_batch,
-                                      cand_queue, tau=tau, clip=clip)
+    if checks.runs_plain(w):
+        return checks.run_plain(KERNEL, stability_scores_plain,
+                                w, mask, cand_latency, cand_batch,
+                                cand_queue, tau=tau, clip=clip)
     checks.require_cuda(w, "stability_scores")
     device = w.device
     if w.ndim != 2:

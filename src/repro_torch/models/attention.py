@@ -63,16 +63,20 @@ def init_attention(generator: torch.Generator, cfg: AttentionConfig,
                    ) -> Dict[str, torch.nn.Parameter]:
     d, h, k_h, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     params = {
-        "wq": make_param((d, h * dh), generator, dtype=dtype),
-        "wk": make_param((d, k_h * dh), generator, dtype=dtype),
-        "wv": make_param((d, k_h * dh), generator, dtype=dtype),
-        "wo": make_param((h * dh, d), generator, dtype=dtype),
+        "wq": make_param((d, h * dh), generator, dtype=dtype,
+                         axes=("embed", "heads")),
+        "wk": make_param((d, k_h * dh), generator, dtype=dtype,
+                         axes=("embed", "heads")),
+        "wv": make_param((d, k_h * dh), generator, dtype=dtype,
+                         axes=("embed", "heads")),
+        "wo": make_param((h * dh, d), generator, dtype=dtype,
+                         axes=("heads", "embed")),
     }
     if cfg.qk_norm:
         params["q_norm"] = make_param((dh,), generator, init="ones",
-                                      dtype=dtype)
+                                      dtype=dtype, axes=(None,))
         params["k_norm"] = make_param((dh,), generator, init="ones",
-                                      dtype=dtype)
+                                      dtype=dtype, axes=(None,))
     return params
 
 
@@ -174,20 +178,22 @@ def init_mla(generator: torch.Generator, cfg: MLAConfig,
     d, h = cfg.d_model, cfg.num_heads
     return {
         # low-rank query path: d -> q_lora -> heads * (nope + rope)
-        "wq_a": make_param((d, cfg.q_lora_rank), generator, dtype=dtype),
+        "wq_a": make_param((d, cfg.q_lora_rank), generator, dtype=dtype,
+                           axes=("embed", None)),
         "q_a_norm": make_param((cfg.q_lora_rank,), generator, init="ones",
-                               dtype=dtype),
+                               dtype=dtype, axes=(None,)),
         "wq_b": make_param((cfg.q_lora_rank, h * cfg.qk_head_dim),
-                           generator, dtype=dtype),
+                           generator, dtype=dtype, axes=(None, "heads")),
         # compressed kv path: d -> kv_lora (+ the shared rope key)
         "wkv_a": make_param((d, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
-                            generator, dtype=dtype),
+                            generator, dtype=dtype, axes=("embed", None)),
         "kv_a_norm": make_param((cfg.kv_lora_rank,), generator, init="ones",
-                                dtype=dtype),
+                                dtype=dtype, axes=(None,)),
         "wkv_b": make_param(
             (cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)),
-            generator, dtype=dtype),
-        "wo": make_param((h * cfg.v_head_dim, d), generator, dtype=dtype),
+            generator, dtype=dtype, axes=(None, "heads")),
+        "wo": make_param((h * cfg.v_head_dim, d), generator, dtype=dtype,
+                         axes=("heads", "embed")),
     }
 
 

@@ -23,13 +23,22 @@ at the forward's entry.
 A block's parameters are a nested dict in the reference; ``ParamTree``
 keeps that nesting as a module, so the state dict's keys are the
 reference's paths.
+
+Every parameter carries the reference's logical axis names (``vocab``,
+``embed``, ``heads``, ``mlp``, ``expert``, ``embed_out`` or None per
+dimension) as its ``axes`` attribute; ``param_axes`` collects them by
+state-dict path for ``repro_torch.distributed.sharding``. The port keeps
+one module per layer where the reference stacks layers, so a path's axes
+are the reference's without the leading ``"layers"``. On the ``meta``
+device (``meta_generator``) the initialisers draw nothing and allocate
+nothing: ``abstract_params`` builds a 671B-parameter model that way.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,10 +47,28 @@ from torch import nn
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_pair
 
 
+Axes = Tuple[Optional[str], ...]
+
+META = torch.device("meta")
+
+
+class _MetaGenerator:
+    """The generator of a shape-only build: it names the ``meta`` device,
+    and the initialisers below draw nothing from it."""
+
+    device = META
+
+
+def meta_generator() -> _MetaGenerator:
+    """A stand-in generator for a build on the ``meta`` device (torch has
+    no generator there)."""
+    return _MetaGenerator()
+
+
 def truncated_normal(shape: Sequence[int], generator: torch.Generator,
                      scale: Optional[float] = None) -> torch.Tensor:
     """``scale * N(0, 1)`` truncated to [-2, 2], float32 on the generator's
-    device.
+    device (shape only on ``meta``).
 
     ``scale=None`` is the reference's fan-in rule: ``1/sqrt(shape[0])``.
     """
@@ -49,50 +76,102 @@ def truncated_normal(shape: Sequence[int], generator: torch.Generator,
     if scale is None:
         scale = 1.0 / math.sqrt(max(shape[0] if shape else 1, 1))
     out = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    if out.device.type == "meta":
+        return out
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return out.mul_(scale)
 
 
+def _frozen(value: torch.Tensor, shape: Tuple[int, ...],
+            axes: Optional[Axes]) -> torch.nn.Parameter:
+    axes = (None,) * len(shape) if axes is None else tuple(axes)
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} do not name the {len(shape)} "
+                         f"dimensions of {shape}")
+    param = torch.nn.Parameter(value, requires_grad=False)
+    param.axes = axes
+    return param
+
+
 def make_param(shape: Sequence[int], generator: torch.Generator,
                init: str = "normal", scale: Optional[float] = None,
-               dtype: torch.dtype = torch.float32) -> torch.nn.Parameter:
+               dtype: torch.dtype = torch.float32,
+               axes: Optional[Axes] = None) -> torch.nn.Parameter:
     """The reference's ``make_param`` as a frozen ``nn.Parameter`` on the
     generator's device: ``"normal"`` (truncated normal, fan-in
     ``shape[0]`` unless ``scale`` is given), ``"embedding"`` (fan-in
     ``shape[-1]``), ``"zeros"`` or ``"ones"``. Drawn in float32, then cast
     to ``dtype``, as the reference casts its float32 parameters at the
-    forward's entry."""
+    forward's entry. ``axes`` (one logical name or None per dimension;
+    all None when omitted) becomes the parameter's ``axes``."""
     shape = tuple(int(s) for s in shape)
     device = generator.device
-    if init == "zeros":
+    if init not in ("zeros", "ones", "normal", "embedding"):
+        raise ValueError(f"unknown init {init!r}")
+    if device.type == "meta":
+        value = torch.empty(shape, dtype=dtype, device=device)
+    elif init == "zeros":
         value = torch.zeros(shape, dtype=dtype, device=device)
     elif init == "ones":
         value = torch.ones(shape, dtype=dtype, device=device)
-    elif init in ("normal", "embedding"):
+    else:
         if scale is None:
             fan_in = shape[-1] if init == "embedding" else (
                 shape[0] if shape else 1)
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         value = truncated_normal(shape, generator, scale).to(dtype)
-    else:
-        raise ValueError(f"unknown init {init!r}")
-    return torch.nn.Parameter(value, requires_grad=False)
+    return _frozen(value, shape, axes)
 
 
 def make_stacked_param(shape: Sequence[int], generator: torch.Generator,
-                       dtype: torch.dtype = torch.float32
-                       ) -> torch.nn.Parameter:
-    """``make_param(shape, generator, dtype=dtype)`` for a stack of experts
-    ``[E, ...]``, drawn one expert at a time: the float32 draw of one
-    slice is the only temporary (a whole DeepSeek-V3 expert stack in
+                       dtype: torch.dtype = torch.float32,
+                       axes: Optional[Axes] = None) -> torch.nn.Parameter:
+    """``make_param(shape, generator, dtype=dtype, axes=axes)`` for a stack
+    of experts ``[E, ...]``, drawn one expert at a time: the float32 draw of
+    one slice is the only temporary (a whole DeepSeek-V3 expert stack in
     float32 would be 15 GB). The scale is the reference's fan-in rule on
-    the whole shape, ``1/sqrt(E)``."""
+    the whole shape, ``1/sqrt(E)``. Nothing is drawn on ``meta``."""
     shape = tuple(int(s) for s in shape)
     scale = 1.0 / math.sqrt(max(shape[0], 1))
     value = torch.empty(shape, dtype=dtype, device=generator.device)
-    for e in range(shape[0]):
-        value[e] = truncated_normal(shape[1:], generator, scale)
-    return torch.nn.Parameter(value, requires_grad=False)
+    if value.device.type != "meta":
+        for e in range(shape[0]):
+            value[e] = truncated_normal(shape[1:], generator, scale)
+    return _frozen(value, shape, axes)
+
+
+def param_axes(module: nn.Module) -> Dict[str, Axes]:
+    """Each parameter's logical axes by state-dict path; raises where a
+    parameter was made without them."""
+    out = {}
+    for name, p in module.named_parameters():
+        axes = getattr(p, "axes", None)
+        if axes is None:
+            raise ValueError(f"parameter {name} carries no logical axes")
+        out[name] = axes
+    return out
+
+
+def set_params(module: nn.Module, values: Mapping[str, torch.Tensor]) -> None:
+    """Put ``values`` (by state-dict path; e.g. ``DTensor``s on a mesh) in
+    place of ``module``'s parameters, as frozen parameters."""
+    for path, v in values.items():
+        owner, _, leaf = path.rpartition(".")
+        mod = module.get_submodule(owner) if owner else module
+        mod._parameters[leaf] = (
+            v if isinstance(v, torch.nn.Parameter)
+            else torch.nn.Parameter(v, requires_grad=False))
+
+
+def abstract_params(init_fn: Callable[[torch.device], nn.Module]
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Axes]]:
+    """Shape-only init: ``init_fn(meta)`` builds the module on the ``meta``
+    device (no draw, no allocation); returns (meta tensor per state-dict
+    path, its logical axes), the port's ``jax.eval_shape`` of the
+    reference's init."""
+    module = init_fn(META)
+    shapes = {name: p.detach() for name, p in module.named_parameters()}
+    return shapes, param_axes(module)
 
 
 class ParamTree(nn.Module):
@@ -122,7 +201,11 @@ class ParamTree(nn.Module):
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dimension in float32 accumulation, cast back to
-    x's dtype; one RMSNorm kernel launch on the card."""
+    x's dtype; one RMSNorm kernel launch on the card. A shape-only run
+    (``meta``) keeps x's shape: flattening a ``DTensor`` sharded on two
+    dimensions into rows is a reshard that the kernel's rows do not need."""
+    if x.device.type == "meta":   # shape-only: the rows stay unflattened
+        return rmsnorm(x, weight, eps=eps)
     d = x.shape[-1]
     return rmsnorm(x.reshape(-1, d).contiguous(), weight, eps=eps).reshape(
         x.shape)
@@ -133,6 +216,8 @@ def rms_norm_pair(q: torch.Tensor, q_weight: torch.Tensor, k: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(rms_norm(q, q_weight), rms_norm(k, k_weight))`` for two tensors of
     one last dimension; one RMSNorm kernel launch on the card."""
+    if q.device.type == "meta":
+        return rmsnorm_pair(q, q_weight, k, k_weight, eps=eps)
     d = q.shape[-1]
     nq, nk = rmsnorm_pair(q.reshape(-1, d).contiguous(), q_weight,
                           k.reshape(-1, d).contiguous(), k_weight, eps=eps)
@@ -226,8 +311,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token-level CE. logits ``[..., V]`` in float32, labels int."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    # subtract before dropping the gathered axis: the same values, and the
+    # only order in which a vocab-sharded DTensor's gather reduces
+    nll = (logz[..., None] - gold)[..., 0]
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)

@@ -42,10 +42,14 @@ def init_cross_attention(generator: torch.Generator, cfg,
                          ) -> Dict[str, torch.nn.Parameter]:
     d, h, kh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
-        "wq": make_param((d, h * dh), generator, dtype=dtype),
-        "wk": make_param((d, kh * dh), generator, dtype=dtype),
-        "wv": make_param((d, kh * dh), generator, dtype=dtype),
-        "wo": make_param((h * dh, d), generator, dtype=dtype),
+        "wq": make_param((d, h * dh), generator, dtype=dtype,
+                         axes=("embed", "heads")),
+        "wk": make_param((d, kh * dh), generator, dtype=dtype,
+                         axes=("embed", "heads")),
+        "wv": make_param((d, kh * dh), generator, dtype=dtype,
+                         axes=("embed", "heads")),
+        "wo": make_param((h * dh, d), generator, dtype=dtype,
+                         axes=("heads", "embed")),
     }
 
 
@@ -81,9 +85,9 @@ class EncoderBlock(nn.Module):
         super().__init__()
         dt = cfg.dtype
         self.norm1 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.norm2 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.attn = nn.ParameterDict(init_attention(generator,
                                                     cfg.attn_config(), dt))
         self.ffn = nn.ParameterDict(init_mlp(generator, cfg.mlp_config(), dt))
@@ -95,7 +99,8 @@ class DecoderBlock(nn.Module):
         dt = cfg.dtype
         for name in ("norm1", "norm2", "norm3"):
             setattr(self, name, make_param((cfg.d_model,), generator,
-                                           init="ones", dtype=dt))
+                                           init="ones", dtype=dt,
+                                           axes=("embed",)))
         self.attn = nn.ParameterDict(init_attention(generator,
                                                     cfg.attn_config(), dt))
         self.xattn = nn.ParameterDict(init_cross_attention(
@@ -118,7 +123,7 @@ class EncDecLM(EarlyExitLM):
         gen, dt = self._generator, cfg.dtype
         self._draw_embedding()
         self.enc_norm = make_param((cfg.d_model,), gen, init="ones",
-                                   dtype=dt)
+                                   dtype=dt, axes=("embed",))
         self.encoder = nn.ModuleList(EncoderBlock(cfg, gen)
                                      for _ in range(cfg.num_encoder_layers))
         self.segments = nn.ModuleList(

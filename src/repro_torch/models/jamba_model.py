@@ -48,9 +48,9 @@ class Sublayer(nn.Module):
         super().__init__()
         dt = cfg.dtype
         self.norm1 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.norm2 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.mixer = ParamTree(
             init_attention(generator, cfg.attn_config(), dt)
             if mixer == "attn" else init_mamba(generator, mcfg, dt))

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import make_param
+from repro_torch.models.common import _frozen, make_param
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,17 +50,25 @@ def init_mamba(generator: torch.Generator, cfg: MambaConfig,
     a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
                                    device=generator.device)).expand(di, n)
     return {
-        "w_in": make_param((d, 2 * di), generator, dtype=dtype),
+        "w_in": make_param((d, 2 * di), generator, dtype=dtype,
+                           axes=("embed", "mlp")),
         "conv_w": make_param((cfg.d_conv, di), generator,
-                             scale=1.0 / math.sqrt(cfg.d_conv), dtype=dtype),
-        "conv_b": make_param((di,), generator, init="zeros", dtype=dtype),
-        "w_x_dbc": make_param((di, r + 2 * n), generator, dtype=dtype),
-        "w_dt": make_param((r, di), generator, dtype=dtype),
-        "dt_bias": make_param((di,), generator, init="zeros", dtype=dtype),
-        "a_log": torch.nn.Parameter(a_log.to(dtype).contiguous(),
-                                    requires_grad=False),
-        "d_skip": make_param((di,), generator, init="ones", dtype=dtype),
-        "w_out": make_param((di, d), generator, dtype=dtype),
+                             scale=1.0 / math.sqrt(cfg.d_conv), dtype=dtype,
+                             axes=(None, "mlp")),
+        "conv_b": make_param((di,), generator, init="zeros", dtype=dtype,
+                             axes=("mlp",)),
+        "w_x_dbc": make_param((di, r + 2 * n), generator, dtype=dtype,
+                              axes=("mlp", None)),
+        "w_dt": make_param((r, di), generator, dtype=dtype,
+                           axes=(None, "mlp")),
+        "dt_bias": make_param((di,), generator, init="zeros", dtype=dtype,
+                              axes=("mlp",)),
+        "a_log": _frozen(a_log.to(dtype).contiguous(), (di, n),
+                         ("mlp", None)),
+        "d_skip": make_param((di,), generator, init="ones", dtype=dtype,
+                             axes=("mlp",)),
+        "w_out": make_param((di, d), generator, dtype=dtype,
+                            axes=("mlp", "embed")),
     }
 
 

@@ -46,11 +46,14 @@ def init_mlp(generator: torch.Generator, cfg: MLPConfig,
              ) -> Dict[str, torch.nn.Parameter]:
     d, f = cfg.d_model, cfg.d_ff
     p = {
-        "w_up": make_param((d, f), generator, dtype=dtype),
-        "w_down": make_param((f, d), generator, dtype=dtype),
+        "w_up": make_param((d, f), generator, dtype=dtype,
+                           axes=("embed", "mlp")),
+        "w_down": make_param((f, d), generator, dtype=dtype,
+                             axes=("mlp", "embed")),
     }
     if cfg.gated:
-        p["w_gate"] = make_param((d, f), generator, dtype=dtype)
+        p["w_gate"] = make_param((d, f), generator, dtype=dtype,
+                                 axes=("embed", "mlp"))
     return p
 
 
@@ -88,17 +91,25 @@ def init_moe(generator: torch.Generator, cfg: MoEConfig,
     at a time), and ``shared`` when there are shared experts."""
     d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.num_experts
     p = {
-        "router": make_param((d, e), generator, scale=0.02, dtype=dtype),
-        "we_gate": make_stacked_param((e, d, f), generator, dtype=dtype),
-        "we_up": make_stacked_param((e, d, f), generator, dtype=dtype),
-        "we_down": make_stacked_param((e, f, d), generator, dtype=dtype),
+        "router": make_param((d, e), generator, scale=0.02, dtype=dtype,
+                             axes=("embed", "expert")),
+        # stacked expert FFNs: the leading `expert` axis shards over EP
+        "we_gate": make_stacked_param((e, d, f), generator, dtype=dtype,
+                                      axes=("expert", "embed", "mlp")),
+        "we_up": make_stacked_param((e, d, f), generator, dtype=dtype,
+                                    axes=("expert", "embed", "mlp")),
+        "we_down": make_stacked_param((e, f, d), generator, dtype=dtype,
+                                      axes=("expert", "mlp", "embed")),
     }
     if cfg.num_shared > 0:
         fs = cfg.shared_ff
         p["shared"] = {
-            "w_gate": make_param((d, fs), generator, dtype=dtype),
-            "w_up": make_param((d, fs), generator, dtype=dtype),
-            "w_down": make_param((fs, d), generator, dtype=dtype),
+            "w_gate": make_param((d, fs), generator, dtype=dtype,
+                                 axes=("embed", "mlp")),
+            "w_up": make_param((d, fs), generator, dtype=dtype,
+                               axes=("embed", "mlp")),
+            "w_down": make_param((fs, d), generator, dtype=dtype,
+                                 axes=("mlp", "embed")),
         }
     return p
 

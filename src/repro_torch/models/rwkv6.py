@@ -44,29 +44,31 @@ def init_time_mix(generator: torch.Generator, cfg: RWKV6Config,
                   ) -> Dict[str, torch.nn.Parameter]:
     d, rk = cfg.d_model, cfg.lora_rank_mix
 
-    def param(shape, **kw):
-        return make_param(shape, generator, dtype=dtype, **kw)
+    def param(shape, axes, **kw):
+        return make_param(shape, generator, dtype=dtype, axes=axes, **kw)
 
     return {
         # data-dependent interpolation (ddlerp) between x_t and x_{t-1}
-        "maa_x": param((d,), init="zeros"),
-        "maa": param((5, d), init="zeros"),
-        "mix_a": param((d, 5 * rk), scale=0.01),
-        "mix_b": param((5, rk, d), scale=0.01),
+        "maa_x": param((d,), (None,), init="zeros"),
+        "maa": param((5, d), (None, None), init="zeros"),
+        "mix_a": param((d, 5 * rk), ("embed", None), scale=0.01),
+        "mix_b": param((5, rk, d), (None, None, "embed"), scale=0.01),
         # projections
-        "w_r": param((d, d)),
-        "w_k": param((d, d)),
-        "w_v": param((d, d)),
-        "w_g": param((d, d)),
-        "w_o": param((d, d)),
+        "w_r": param((d, d), ("embed", "heads")),
+        "w_k": param((d, d), ("embed", "heads")),
+        "w_v": param((d, d), ("embed", "heads")),
+        "w_g": param((d, d), ("embed", "heads")),
+        "w_o": param((d, d), ("heads", "embed")),
         # data-dependent decay (the Finch mechanism)
-        "decay_base": param((d,), init="zeros"),
-        "decay_a": param((d, cfg.lora_rank_decay), scale=0.01),
-        "decay_b": param((cfg.lora_rank_decay, d), scale=0.01),
+        "decay_base": param((d,), (None,), init="zeros"),
+        "decay_a": param((d, cfg.lora_rank_decay), ("embed", None),
+                         scale=0.01),
+        "decay_b": param((cfg.lora_rank_decay, d), (None, "embed"),
+                         scale=0.01),
         # per-channel bonus u
-        "bonus": param((d,), init="zeros"),
+        "bonus": param((d,), (None,), init="zeros"),
         # output group-norm gain (per head)
-        "ln_out": param((d,), init="ones"),
+        "ln_out": param((d,), (None,), init="ones"),
     }
 
 
@@ -194,11 +196,16 @@ def init_channel_mix(generator: torch.Generator, cfg: RWKV6Config,
                      ) -> Dict[str, torch.nn.Parameter]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "maa_k": make_param((d,), generator, init="zeros", dtype=dtype),
-        "maa_r": make_param((d,), generator, init="zeros", dtype=dtype),
-        "w_k": make_param((d, f), generator, dtype=dtype),
-        "w_v": make_param((f, d), generator, dtype=dtype),
-        "w_r": make_param((d, d), generator, dtype=dtype),
+        "maa_k": make_param((d,), generator, init="zeros", dtype=dtype,
+                            axes=(None,)),
+        "maa_r": make_param((d,), generator, init="zeros", dtype=dtype,
+                            axes=(None,)),
+        "w_k": make_param((d, f), generator, dtype=dtype,
+                          axes=("embed", "mlp")),
+        "w_v": make_param((f, d), generator, dtype=dtype,
+                          axes=("mlp", "embed")),
+        "w_r": make_param((d, d), generator, dtype=dtype,
+                          axes=("embed", "embed_out")),
     }
 
 

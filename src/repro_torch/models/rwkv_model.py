@@ -38,9 +38,9 @@ class RWKVBlock(nn.Module):
         super().__init__()
         dt = cfg.dtype
         self.norm1 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.norm2 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.tm = nn.ParameterDict(init_time_mix(generator, rcfg, dt))
         self.cm = nn.ParameterDict(init_channel_mix(generator, rcfg, dt))
 

@@ -57,6 +57,7 @@ from repro_torch.models.common import (
     cross_entropy,
     make_param,
     mask_padded_vocab,
+    meta_generator,
     rms_norm,
     weighted_exit_loss,
 )
@@ -260,9 +261,9 @@ class Block(nn.Module):
         dt = cfg.dtype
         self.kind = kind
         self.norm1 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.norm2 = make_param((cfg.d_model,), generator, init="ones",
-                                dtype=dt)
+                                dtype=dt, axes=("embed",))
         self.attn = nn.ParameterDict(
             init_mla(generator, cfg.mla_config(), dt) if cfg.mla
             else init_attention(generator, cfg.attn_config(), dt))
@@ -371,7 +372,8 @@ class EarlyExitLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
+            generator = (meta_generator() if device.type == "meta" else
+                         torch.Generator(device=device).manual_seed(0))
         if generator.device.type != device.type:
             raise ValueError(f"generator is on {generator.device}, the model "
                              f"on {device}")
@@ -384,16 +386,19 @@ class EarlyExitLM(nn.Module):
     def _draw_embedding(self) -> None:
         cfg, gen = self.cfg, self._generator
         self.embed = make_param((cfg.vocab_padded, cfg.d_model), gen,
-                                init="embedding", dtype=cfg.dtype)
+                                init="embedding", dtype=cfg.dtype,
+                                axes=("vocab", "embed"))
         self.exit_norms = nn.ParameterList(
-            make_param((cfg.d_model,), gen, init="ones", dtype=cfg.dtype)
+            make_param((cfg.d_model,), gen, init="ones", dtype=cfg.dtype,
+                       axes=("embed",))
             for _ in range(cfg.num_exits))
 
     def _draw_unembedding(self) -> None:
         cfg = self.cfg
         if not cfg.tie_embeddings:
             self.lm_head = make_param((cfg.d_model, cfg.vocab_padded),
-                                      self._generator, dtype=cfg.dtype)
+                                      self._generator, dtype=cfg.dtype,
+                                      axes=("embed", "vocab"))
         del self._generator
 
     def _drop_head_copy(self) -> None:

@@ -4,10 +4,9 @@ remeshing arithmetic, and straggler mitigation.
   * ``PreemptionGuard`` — SIGTERM/flag-triggered graceful drain: finish the
     in-flight quantum/step, force a checkpoint, exit cleanly.
   * ``ElasticMesh`` — the largest valid (data, model) grid for a surviving
-    device count (:meth:`ElasticMesh.propose`). Building the device mesh
-    itself (:meth:`ElasticMesh.build`) waits for the port's mesh layer
-    (``launch/mesh.py`` on torch ``DeviceMesh``) and raises
-    ``NotImplementedError`` until then.
+    device count (:meth:`ElasticMesh.propose`), and the torch
+    ``DeviceMesh`` of that grid over the job's first ranks
+    (:meth:`ElasticMesh.build`).
   * ``StragglerPolicy`` — serving-side mitigation consistent with the
     paper's determinism story: the profile table is scaled by an online
     EWMA of observed/expected latency per replica, so a slow replica's
@@ -31,6 +30,7 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 
 class PreemptionGuard:
@@ -89,14 +89,31 @@ class ElasticMesh:
         accum = max(1, -(-full_data // data_pow2))
         return data_pow2, self.model_axis, accum
 
-    def build(self, num_devices: Optional[int] = None):
-        """The device mesh of :meth:`propose`'s grid: not ported. It needs
-        the port's mesh layer (torch ``DeviceMesh``), which is the
-        distribution item of the port's queue (ROADMAP Queue 1 item 10)."""
-        raise NotImplementedError(
-            "ElasticMesh.build needs the port's device mesh (torch "
-            "DeviceMesh), ROADMAP Queue 1 item 10; ElasticMesh.propose "
-            "gives the grid")
+    def build(self, num_devices: Optional[int] = None, device=None):
+        """The ``(data, model)`` device mesh of :meth:`propose`'s grid over
+        the first ``data * model`` ranks of the job (all of them unless
+        ``num_devices`` says how many survive), and the grad-accumulation
+        multiplier. Ranks of the default process group are the devices (a
+        one-rank group is opened where none is: gloo on the CPU, NCCL on
+        the card, which ``device`` picks as ``make_host_mesh`` does)."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.device import resolve_device
+        from repro_torch.launch.mesh import make_host_mesh
+
+        if not dist.is_initialized():
+            make_host_mesh(1, device=device)
+        world = dist.get_world_size()
+        n = num_devices if num_devices is not None else world
+        data, model, accum = self.propose(n)
+        if data * model > world:
+            raise ValueError(f"a {data} x {model} mesh needs {data * model} "
+                             f"ranks, the job has {world}")
+        dev = resolve_device(device)
+        ranks = torch.arange(data * model).reshape(data, model)
+        mesh = DeviceMesh(dev.type, ranks, mesh_dim_names=("data", "model"))
+        return mesh, accum
 
 
 class StragglerPolicy:

@@ -106,16 +106,25 @@ def lm_payload(cfg: LMConfig, generator: torch.Generator, prompt_len: int,
     on the generator's device: ``{"tokens": [B, prompt_len]}`` for a
     decoder-only model, ``{"embeds": [B, frontend_seq, D]}`` for one with
     the vision frontend stub, ``{"src_embeds": [B, frontend_seq, D],
-    "tokens": [B, prompt_len]}`` for the encoder-decoder."""
+    "tokens": [B, prompt_len]}`` for the encoder-decoder. With
+    ``models.common.meta_generator()`` the batch is shapes only, on
+    ``meta`` (what the roofline counts)."""
     device = generator.device
+    shape_only = torch.device(device).type == "meta"
 
     def embeds():
-        return torch.randn((max_batch, cfg.frontend_seq, cfg.d_model),
-                           generator=generator, device=device).to(cfg.dtype)
+        shape = (max_batch, cfg.frontend_seq, cfg.d_model)
+        if shape_only:
+            return torch.empty(shape, dtype=cfg.dtype, device=device)
+        return torch.randn(shape, generator=generator,
+                           device=device).to(cfg.dtype)
 
     def tokens():
-        return torch.randint(0, cfg.vocab_size, (max_batch, prompt_len),
-                             generator=generator, device=device)
+        shape = (max_batch, prompt_len)
+        if shape_only:
+            return torch.empty(shape, dtype=torch.int64, device=device)
+        return torch.randint(0, cfg.vocab_size, shape, generator=generator,
+                             device=device)
 
     if cfg.family == "encdec":
         return {"src_embeds": embeds(), "tokens": tokens()}

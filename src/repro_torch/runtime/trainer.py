@@ -24,6 +24,12 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from repro_torch.distributed.sharding import (
+    NamedSharding,
+    ShardingRules,
+    spec_for_param,
+    tree_map,
+)
 from repro_torch.models.common import cast_floats
 from repro_torch.optim import Adafactor, AdamW, Optimizer, clip_by_global_norm
 
@@ -36,7 +42,8 @@ class TrainConfig:
     lr: float = 3e-4
     grad_clip: float = 1.0
     grad_accum: int = 1            # microbatches per step (summed in float32)
-    compress_grads: bool = False   # int8 + error feedback (not read: item 10)
+    compress_grads: bool = False   # int8 + error feedback (never read, as
+                                   # in the reference)
 
 
 def master_values(model: nn.Module) -> Values:
@@ -132,25 +139,60 @@ def make_train_step(
 
 
 # ---------------------------------------------------------------------------
-# Optimizer-state sharding: needs the port's mesh
+# Optimizer-state sharding
 # ---------------------------------------------------------------------------
 
-def opt_state_shardings(*args, **kwargs):
-    """The reference's sharding tree for an optimizer state: not ported. It
-    needs the port's device mesh (torch ``DeviceMesh``), ROADMAP Queue 1
-    item 10."""
-    raise NotImplementedError(
-        "opt_state_shardings needs the port's device mesh (torch "
-        "DeviceMesh), ROADMAP Queue 1 item 10")
+def _ref_order(path: str):
+    """The order in which the reference's pytree flattening visits a leaf:
+    dict keys sorted, list items by index."""
+    return tuple(int(c) if c.isdigit() else c for c in path.split("."))
 
 
-def abstract_opt_state(*args, **kwargs):
-    """The reference's ``jax.eval_shape`` of ``opt.init``: not ported. It
-    needs shapes without storage (meta tensors) beside the mesh, ROADMAP
-    Queue 1 item 10."""
-    raise NotImplementedError(
-        "abstract_opt_state needs the port's shape-only evaluation (meta "
-        "tensors) and device mesh, ROADMAP Queue 1 item 10")
+def opt_state_shardings(opt: Optimizer, param_shapes: Values,
+                        axes_tree: Dict[str, tuple], rules: ShardingRules,
+                        mesh):
+    """A sharding for every leaf of ``opt``'s state (a tree of dicts like
+    the state itself).
+
+    AdamW moments mirror the params exactly; Adafactor's factored
+    accumulators drop one dim: the matching logical axis is dropped from
+    the spec by shape alignment. As in the reference, the first parameter
+    of a shape (in the reference's flattening order) lends that shape its
+    axes.
+    """
+    state_shapes = abstract_opt_state(opt, param_shapes)
+
+    shape_to_axes = {}
+    for name in sorted(param_shapes, key=_ref_order):
+        shape_to_axes.setdefault(tuple(param_shapes[name].shape),
+                                 axes_tree[name])
+
+    def spec_by_shape(_path, s):
+        shape = tuple(s.shape)
+        if shape in shape_to_axes:
+            return NamedSharding(mesh, spec_for_param(
+                shape, shape_to_axes[shape], rules, mesh))
+        # factored accumulator: find a param shape it was reduced from
+        for pshape, axes in shape_to_axes.items():
+            if len(pshape) != len(shape) + 1:
+                continue
+            for drop in range(len(pshape)):
+                if tuple(d for i, d in enumerate(pshape) if i != drop) == shape:
+                    sub_axes = tuple(a for i, a in enumerate(axes) if i != drop)
+                    return NamedSharding(mesh, spec_for_param(
+                        shape, sub_axes, rules, mesh))
+        return NamedSharding(mesh, ())  # scalar counters etc.
+
+    return tree_map(spec_by_shape, state_shapes)
+
+
+def abstract_opt_state(opt: Optimizer, param_shapes: Values):
+    """``opt.init`` on ``meta`` stand-ins of ``param_shapes`` (tensors or
+    meta tensors by name): the state's shapes and dtypes, nothing
+    allocated."""
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in param_shapes.items()}
+    return opt.init(meta)
 
 
 def pick_optimizer_for(cfg, lr=3e-4) -> Optimizer:

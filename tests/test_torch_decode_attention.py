@@ -181,10 +181,19 @@ def test_wrapper_refuses_bad_arguments(case, match):
 
 
 def test_wrapper_refuses_other_devices():
+    # a meta tensor is shape-only evaluation (the dry-run, the cost
+    # counter): the plain version, no launch; the card path's guard
+    # still refuses every device but cuda
+    from repro_torch.kernels import checks
+
     t = torch.zeros((1, 2, 4, 16), device="meta")
+    reset_launch_counts()
+    out = decode_attention(t[:, :, 0], t, t,
+                           torch.ones(1, dtype=torch.int32, device="meta"))
+    assert out.device.type == "meta" and out.shape == t[:, :, 0].shape
+    assert sum(launch_counts.values()) == 0
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        decode_attention(t[:, :, 0], t, t,
-                         torch.ones(1, dtype=torch.int32, device="meta"))
+        checks.require_cuda(t, "decode_attention")
 
 
 @pytest.mark.parametrize("b,h,kh", [(1, 32, 8), (8, 32, 8), (1, 9, 3),

@@ -46,12 +46,17 @@ def test_port_package_is_present():
                    "core/simfast.py", "core/clusterfast.py",
                    "core/seedband.py", "optim/optimizers.py",
                    "data/pipeline.py", "runtime/trainer.py",
-                   "runtime/checkpoint.py", "launch/train.py"):
+                   "runtime/checkpoint.py", "launch/train.py",
+                   "configs/shapes.py", "launch/mesh.py",
+                   "distributed/sharding.py", "distributed/collectives.py",
+                   "launch/graph_analysis.py", "launch/dryrun.py",
+                   "launch/roofline.py"):
         assert module in names, module
     for source in ("stability_score.cu", "rmsnorm_bwd.cu",
                    "flash_attention_bwd.cu"):
         assert (ROOT / "src" / "repro_torch" / "csrc" / source).exists()
-    assert [p.name for p in EXAMPLES] == ["quickstart.py",
+    assert [p.name for p in EXAMPLES] == ["elastic_failover.py",
+                                          "quickstart.py",
                                           "serve_multi_model.py",
                                           "train_early_exit_lm.py"]
 

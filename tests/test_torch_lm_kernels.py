@@ -312,5 +312,14 @@ def test_cpu_calls_run_the_plain_versions_and_count_no_launch():
     lambda t: exit_head(t, t[0], t),
 ])
 def test_wrappers_refuse_other_devices(call):
+    # a meta tensor is shape-only evaluation (the dry-run, the cost
+    # counter): the plain version, no launch; the card path's guard
+    # still refuses every device but cuda
+    t = torch.zeros((4, 4), device="meta")
+    reset_launch_counts()
+    out = call(t)
+    assert all(o.device.type == "meta" for o in (
+        out if isinstance(out, tuple) else (out,)))
+    assert sum(launch_counts.values()) == 0
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        call(torch.zeros((4, 4), device="meta"))
+        checks.require_cuda(t, "rmsnorm")

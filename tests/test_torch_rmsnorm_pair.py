@@ -62,9 +62,18 @@ def test_pair_matches_the_jax_reference(tq, tk, d, dtype):
 
 
 def test_pair_rejects_other_devices():
+    # a meta tensor is shape-only evaluation (the dry-run, the cost
+    # counter): the plain version, no launch; the card path's guard
+    # still refuses every device but cuda
+    from repro_torch.kernels import checks
+
     x = torch.zeros((2, 8), device="meta")
+    reset_launch_counts()
+    oq, ok = rmsnorm_pair(x, x[0], x, x[0])
+    assert oq.device.type == ok.device.type == "meta" and oq.shape == x.shape
+    assert sum(launch_counts.values()) == 0
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        rmsnorm_pair(x, x[0], x, x[0])
+        checks.require_cuda(x, "rmsnorm")
 
 
 @pytest.fixture(scope="module")

@@ -171,11 +171,25 @@ def test_elastic_mesh_propose_equals_the_reference(model_axis):
                 mesh.propose(model_axis - 1)
 
 
-def test_elastic_mesh_build_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ElasticMesh(2).build(4)
-    with pytest.raises(NotImplementedError, match="DeviceMesh"):
-        ElasticMesh().build()
+def test_elastic_mesh_build_equals_the_reference():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import release_mesh
+
+    release_mesh()
+    try:
+        mesh, accum = ElasticMesh(1).build(device="cpu")
+        want_mesh, want_accum = RF.ElasticMesh(1).build()
+        assert tuple(mesh.shape) == tuple(want_mesh.devices.shape)
+        assert mesh.mesh_dim_names == tuple(want_mesh.axis_names)
+        assert accum == want_accum == 16
+        assert dist.get_backend() == "gloo" and mesh.device_type == "cpu"
+        with pytest.raises(ValueError, match="ranks"):
+            ElasticMesh(1).build(4, device="cpu")   # one rank survives here
+        with pytest.raises(AssertionError, match="TP degree"):
+            ElasticMesh().build(device="cpu")
+    finally:
+        release_mesh()
 
 
 def test_preemption_guard_equals_the_reference():

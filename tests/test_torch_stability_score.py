@@ -101,10 +101,19 @@ def test_cpu_tensors_do_not_count_as_launches():
 
 
 def test_wrapper_rejects_other_devices():
+    # a meta tensor is shape-only evaluation (the dry-run, the cost
+    # counter): the plain version, no launch; the card path's guard
+    # still refuses every device but cuda
+    from repro_torch.kernels import checks
+
     w = torch.zeros((3, 4), device="meta")
+    reset_launch_counts()
+    out = ops.stability_scores(w, w, torch.zeros(3, device="meta"),
+                               torch.zeros(3, device="meta"), tau=0.05)
+    assert out.device.type == "meta" and out.shape == (3,)
+    assert sum(launch_counts.values()) == 0
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        ops.stability_scores(w, w, torch.zeros(3, device="meta"),
-                             torch.zeros(3, device="meta"), tau=0.05)
+        checks.require_cuda(w, "stability_scores")
 
 
 @pytest.fixture()

@@ -7,6 +7,7 @@ config, the memorization corpus learnt, the ResNet's loss lowered, and the
 sharding helpers that wait for the port's mesh."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro.runtime.trainer import make_train_step as ref_make_train_step
 
 from repro_torch.configs import SMOKE, get_config
 from repro_torch.data import cifar100_like, synthetic_memorization_corpus
+from repro_torch.distributed.sharding import train_rules, tree_leaves
 from repro_torch.models import EarlyExitResNet, build_model
 from repro_torch.optim import Adafactor, AdamW
 from repro_torch.runtime.trainer import (
@@ -159,6 +161,23 @@ def test_pick_optimizer_and_the_mesh_helpers():
     assert pick_optimizer_for(get_config("smollm-135m"), lr=0.1) == AdamW(
         lr=0.1)
     assert TrainConfig() == TrainConfig("adamw", 3e-4, 1.0, 1, False)
-    for fn in (opt_state_shardings, abstract_opt_state):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn(AdamW(), {})
+    # the mesh helpers work: shape-only state and its shardings
+    values = {"w": torch.zeros(256, 512), "b": torch.zeros(32)}
+    axes = {"w": ("embed", "mlp"), "b": ("embed",)}
+    mesh = types.SimpleNamespace(shape={"data": 16, "model": 16})
+    for opt in (AdamW(), Adafactor()):
+        state = abstract_opt_state(opt, values)
+        assert [(p, tuple(t.shape), t.dtype) for p, t in tree_leaves(
+            state)] == [(p, tuple(t.shape), t.dtype)
+                        for p, t in tree_leaves(opt.init(values))]
+        assert all(t.device.type == "meta" for _, t in tree_leaves(state))
+        shardings = opt_state_shardings(opt, values, axes, train_rules(),
+                                        mesh)
+        if isinstance(opt, AdamW):
+            assert state["m"]["w"].device.type == "meta"
+            assert shardings["m"]["w"].spec == ("data", "model")
+            assert shardings["v"]["b"].spec == ("data",)
+        else:
+            assert tuple(state["v"]["w"]["vr"].shape) == (256,)
+            assert shardings["v"]["w"]["vr"].spec == ("data",)
+            assert shardings["v"]["w"]["vc"].spec == ("model",)
