@@ -239,20 +239,22 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int, per_graph: int = 20) -> float:
+def graph_ms(fn, iters: int, per_graph: int = 20, stream=None) -> float:
     """Device time of one ``fn`` call: ``per_graph`` calls captured in a
     CUDA graph and replayed ``iters`` times, so the host's launch cost is
-    not in the number."""
+    not in the number. ``stream``: the side stream to warm up and capture
+    on (an autograd backward runs on its forward's stream, so a backward is
+    captured on the stream its forward ran on)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(per_graph):
             fn()
     return cuda_ms(graph.replay, iters) / per_graph
@@ -3494,7 +3496,11 @@ def _train_kernel_cases(configs):
     S = 256: rmsnorm over B x S rows, the q/k pair over B x S x H and
     B x S x K rows, attention per layer), then the last model's attention
     at B = 1, S = 2048 (the same rmsnorm rows as B = 8, S = 256), at a
-    ragged S = 77 and non-causal, and ragged rmsnorm rows."""
+    ragged S = 77 and non-causal, and ragged rmsnorm rows; then the cases
+    the trained LMs do not reach: attention at the `serve_multi_model`
+    LMs' D = 16 and 32 (4 heads, 2 kv heads) and at G = 1 (DeepSeek-MoE's
+    16 heads of D = 128), and rmsnorm rows of D = 100, which take the
+    scalar layout in bfloat16 (200-byte rows)."""
     b, s = TRAIN["batch"], TRAIN["seq"]
     cases = []
     for arch, cfg in configs.items():
@@ -3514,7 +3520,11 @@ def _train_kernel_cases(configs):
               ("flash_attention_bwd", "ragged_s77", (2, *heads, 77, dh, True)),
               ("flash_attention_bwd", "noncausal_s256",
                (2, *heads, s, dh, False)),
-              ("rmsnorm_bwd", "ragged_t1000", (1000, 4096))]
+              ("rmsnorm_bwd", "ragged_t1000", (1000, 4096)),
+              ("flash_attention_bwd", "multi_d16", (b, 4, 2, s, 16, True)),
+              ("flash_attention_bwd", "multi_d32", (b, 4, 2, s, 32, True)),
+              ("flash_attention_bwd", "g1_d128", (b, 16, 16, s, 128, True)),
+              ("rmsnorm_bwd", "scalar_d100", (b * s, 100))]
     return cases
 
 
@@ -3586,7 +3596,8 @@ def _bwd_cost(kernel, shape, dtype):
 def _bwd_library(kernel, args):
     """One PyTorch call giving the same gradient, timed as the yardstick
     (the port never calls it): autograd of ``F.rms_norm`` or of SDPA, on a
-    graph built once; None for the q/k pair (no one call)."""
+    graph built once, its forward run on the current stream; None for the
+    q/k pair (no one call)."""
     import torch
     import torch.nn.functional as F
 
@@ -3624,7 +3635,8 @@ def _grad_close(label, got, want, tol):
 
 def run_bwd_cases(cases, dev, gen):
     """Each backward case against its plain version in bfloat16 and
-    float32, run twice and held bitwise, timed in both dtypes. Returns
+    float32, run twice and held bitwise, timed in both dtypes (with each
+    case's wall time on the host, checks included). Returns
     ({kernel: {dtype: max abs err}}, {kernel: {label[/float32]: timing}})."""
     import torch
 
@@ -3637,6 +3649,7 @@ def run_bwd_cases(cases, dev, gen):
     for kernel, label, shape in cases:
         fn, plain = wrappers[kernel]
         for dname, dtype in dtypes.items():
+            t0 = time.perf_counter()
             args = _train_kernel_inputs(kernel, shape, dtype, dev, gen)
             got = fn(*args)
             again = fn(*args)
@@ -3648,15 +3661,21 @@ def run_bwd_cases(cases, dev, gen):
                 f"{kernel} {label} {dname}", got, want, LM_TOL[dname]))
             nbytes, ops, rate = _bwd_cost(kernel, shape, dtype)
             bound, bound_by = _bound_ms(nbytes, ops, rate)
-            lib = _bwd_library(kernel, args)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                lib = _bwd_library(kernel, args)
             key = label if dname == "bfloat16" else f"{label}/{dname}"
             timings[kernel][key] = dict(
                 shape=list(shape), dtype=dname,
                 ms=graph_ms(lambda: fn(*args), 10, per_graph=5),
                 plain_ms=cuda_ms(lambda: plain(*args), 3, warmup=1),
-                library_ms=None if lib is None else cuda_ms(lib, 10,
-                                                            warmup=2),
-                bound_ms=bound, bound_by=bound_by)
+                # replayed from a graph as ``ms`` is, so that neither
+                # holds the host's launch cost
+                library_ms=None if lib is None else graph_ms(
+                    lib, 10, per_graph=5, stream=side),
+                bound_ms=bound, bound_by=bound_by,
+                seconds=time.perf_counter() - t0)  # the case's wall time
             del got, again, want, args, lib
     return errs, timings
 
@@ -3962,6 +3981,41 @@ LM_KERNEL_ROWS = {
 }
 
 
+def ptxas_budget(name):
+    """nvcc's ``-Xptxas -v`` report of ``csrc/<name>.cu`` from this run's
+    build, one entry a kernel: registers, spill stores and loads (bytes)
+    and static shared memory (bytes; the kernels' dynamic shared memory is
+    in their sources' headers). Empty where this process built nothing."""
+    import re
+
+    from repro_torch.kernels import build
+
+    rows, entry = [], None
+    for line in build.BUILD_LOG.get(name, {}).get("ptxas", "").splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(2tc|3f32)?\d+(dq_kernel|dkv_kernel|"
+                          r"rmsnorm_bwd_\w+?_kernel|rmsnorm_bwd_reduce)"
+                          r"(I.*?EE)?", m.group(1))
+            ns = {"2tc": "tc::", "3f32": "f32::"}.get(k.group(1), "")
+            targs = k.group(3) or ""
+            args = (["bf16"] if "__nv_bfloat16" in targs else
+                    ["f32"] if targs.startswith("If") else [])
+            args += re.findall(r"Li(\d+)E", targs)
+            entry = {"kernel": ns + k.group(2)
+                     + (f"<{', '.join(args)}>" if args else "")}
+            rows.append(entry)
+        elif entry is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            entry.update(spill_stores=int(st), spill_loads=int(ld))
+        elif entry is not None and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry.update(registers=int(regs.group(1)),
+                         smem_static=int(smem.group(1)) if smem else 0)
+    return rows
+
+
 BWD_KERNEL_ROWS = {
     # kernel: (source, what it replaces, the main timed case)
     "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
@@ -4068,6 +4122,7 @@ def kernel_summary(kernel, resnet_launches, sim_launches, fleet_launches,
             **{f"{k}_f32": f32[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "cases": timings,
+            "ptxas": ptxas_budget(name),
         })
     return rows
 

@@ -39,14 +39,23 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
                         f"float32 or bfloat16") from None
 
 
+def has_16_byte_rows(t: torch.Tensor) -> bool:
+    """Whether every row (last dimension) of ``t`` is contiguous and starts
+    16-byte aligned, as ``cp.async`` copies of 16-byte rows need: a
+    contiguous last dimension, an aligned base pointer, and strides of the
+    other dimensions that are multiples of 16 bytes (a dimension of size 1
+    never uses its stride)."""
+    per_16 = max(1, 16 // t.element_size())
+    return ((t.ndim == 0 or t.shape[-1] <= 1 or t.stride(-1) == 1)
+            and t.data_ptr() % 16 == 0
+            and not any(st % per_16 for st, n in
+                        zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
 def require_16_byte_rows(t: torch.Tensor, name: str) -> None:
-    """Raise ``ValueError`` unless every row (last dimension) of ``t``
-    starts 16-byte aligned, as ``cp.async`` copies of 16-byte rows need: an
-    aligned base pointer, and strides of the other dimensions that are
-    multiples of 16 bytes (a dimension of size 1 never uses its stride)."""
-    per_16 = 16 // t.element_size()
-    if t.data_ptr() % 16 or any(st % per_16 for st, n in
-                                zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+    """Raise ``ValueError`` unless :func:`has_16_byte_rows` holds for
+    ``t``."""
+    if not has_16_byte_rows(t):
         raise ValueError(
             f"{name} (strides {t.stride()}, address {t.data_ptr():#x}) does "
             f"not start every row on 16 bytes, which the kernel's cp.async "

@@ -32,6 +32,7 @@ from repro_torch.kernels.flash_attention.ref import (
 KERNEL = "flash_attention"
 BWD_KERNEL = "flash_attention_bwd"
 BWD_LAUNCHES = 2  # dq (with each row's lse and delta), then dk and dv
+BWD_TILE = 64  # positions of a tile: the scratch rows are padded to it
 HEAD_DIMS = (16, 32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -74,8 +75,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if dout.device.type != "meta" and not checks.has_16_byte_rows(dout):
+            # a fresh contiguous copy, whose rows start on 16 bytes (a
+            # shape-only run on `meta` has no addresses to align)
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout,
                                          causal=ctx.causal)
         return dq, dk, dv, None
@@ -141,11 +144,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card: two launches (dq with each row's logsumexp recomputed from
     q and k and delta = rowsum(dout * out), then dk and dv a key tile at a
     time), no float atomics, so the same inputs give the same gradient
-    bitwise; float32 or bfloat16, any S, causal or not, D one of 16, 32,
-    64, 128. The inputs are read through their strides, as the forward
-    reads them: strided views go in without copies (the last dimension
-    must be contiguous); dq, dk and dv come back contiguous. On the CPU,
-    the plain backward.
+    bitwise; bfloat16 on the tensor cores, float32 on the CUDA cores; any
+    S, causal or not, D one of 16, 32, 64, 128. The inputs are read through
+    their strides, as the forward reads them: strided views go in without
+    copies (the last dimension must be contiguous); dq, dk and dv come back
+    contiguous. bfloat16 inputs are copied as 16-byte rows, so, as for the
+    forward, every base pointer must be 16-byte aligned and every batch,
+    head and position stride a multiple of 8 elements, or the wrapper
+    raises ``ValueError``. On the CPU, the plain backward.
     """
     if checks.runs_plain(q):
         return checks.run_plain(BWD_KERNEL, flash_attention_bwd_plain, q, k,
@@ -156,10 +162,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ("dout", dout)),
                    ((b, h, s, d), (b, kh, s, d), (b, kh, s, d),
                     (b, h, s, d), (b, h, s, d)))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                        ("dout", dout)):
+            checks.require_16_byte_rows(t, name)
     dq = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, kh, s, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    s_pad = -(-s // BWD_TILE) * BWD_TILE
+    lse = torch.empty((b, h, s_pad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     strides = (ctypes.c_int64 * 15)(*(
         st for t in (q, k, v, out, dout) for st in t.stride()[:3]))

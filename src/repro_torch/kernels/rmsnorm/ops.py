@@ -25,14 +25,71 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_plain, rmsnorm_plain
 KERNEL = "rmsnorm"
 BWD_KERNEL = "rmsnorm_bwd"
 BWD_LAUNCHES = 2  # the rows kernel, then the gain's fixed-order reduction
+# The backward's layouts (csrc/rmsnorm_bwd.cu numbers them in this order):
+# a sub-warp a row, a block of warps a row, one element at a time.
+BWD_LAYOUTS = ("rows", "block", "scalar")
+VEC_BYTES = 16           # a thread's loads in the two vector layouts
+ROWS_MAX_NVEC = 64       # 16-byte vectors a row in the rows layout
+BLOCK_MAX_NVEC = 1024    # and in the block layout (256 threads x 4)
+SCALAR_MAX_D = 32768     # the scalar layout's [rows in flight][D] floats
+ROW_THREADS = 256        # threads of a block holding several rows
+# Blocks to aim for: four a streaming multiprocessor of an H100 (132); each
+# block takes at least MIN_ROWS_PER_BLOCK rows, so the [blocks, D] float32
+# partial of the gain's gradient holds at most an eighth of the rows.
+TARGET_BLOCKS = 4 * 132
+MIN_ROWS_PER_BLOCK = 8
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
                                      ctypes.c_void_p]
 _PAIR_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int]) * 2 + [
     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _BWD_PAIR_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]) * 2 + [
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
+
+
+def bwd_row_threads(layout: str, d: int, dtype: torch.dtype):
+    """(threads a row, rows in flight a block) of the backward's ``layout``
+    at width ``d``: the rows layout gives a row 4, 8, 16 or 32 lanes (each
+    up to 2 vectors), the block layout 32 per 64 vectors up to ROW_THREADS,
+    the scalar layout a warp up to D = 1024, else 256 threads; a block
+    holds ROW_THREADS // threads rows, at least one."""
+    nvec = d * torch.tensor([], dtype=dtype).element_size() // VEC_BYTES
+    if layout == "rows":
+        lanes = next(n for n in (4, 8, 16, 32) if nvec <= n or n == 32)
+    elif layout == "block":
+        lanes = min(ROW_THREADS, 32 * -(-nvec // 64))
+    else:
+        lanes = 32 if d <= 1024 else 256
+    return lanes, max(1, ROW_THREADS // lanes)
+
+
+def bwd_plan(rows: int, d: int, dtype: torch.dtype, aligned: bool):
+    """The backward's launch plan for one tensor of ``rows`` x ``d``:
+    (layout, blocks, rows per block), a fixed function of its arguments
+    (never of the device), so the gain's gradient sums in the same order
+    on any card. ``aligned``: every base address 16 bytes aligned.
+
+    The layout follows the row's 16-byte vectors (nvec = d * size / 16):
+    "rows" up to ROWS_MAX_NVEC, "block" up to BLOCK_MAX_NVEC, "scalar"
+    where D * size is not a multiple of 16 bytes, an address is not
+    aligned, or nvec is larger. Rows per block: enough that the tensor
+    takes about TARGET_BLOCKS blocks, at least MIN_ROWS_PER_BLOCK, rounded
+    up to whole rounds of the block's rows in flight; blocks = ceil(rows /
+    rows per block) (0 for no rows)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nvec, ragged = divmod(d * size, VEC_BYTES)
+    if not aligned or ragged or nvec > BLOCK_MAX_NVEC:
+        layout = "scalar"
+        if d > SCALAR_MAX_D:
+            raise ValueError(f"D={d} needs the scalar layout, which takes "
+                             f"D <= {SCALAR_MAX_D}")
+    else:
+        layout = "rows" if nvec <= ROWS_MAX_NVEC else "block"
+    _, slots = bwd_row_threads(layout, d, dtype)
+    per = max(MIN_ROWS_PER_BLOCK, -(-rows // TARGET_BLOCKS))
+    per = -(-per // slots) * slots
+    return layout, -(-rows // per), per
 
 
 def _check(x: torch.Tensor, gain: torch.Tensor, name: str,
@@ -159,8 +216,6 @@ def rmsnorm_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
 def _bwd_launch(x, gain, dy, xk=None, gk=None, dyk=None, eps=1e-6):
     """The backward kernel's two launches for one tensor, or for the pair
     when ``xk`` is given; returns (dx, dgain[, dxk, dgk])."""
-    partial_rows = checks.launcher(BWD_KERNEL, "rmsnorm_bwd_partial_rows",
-                                   [ctypes.c_int])
     pair = xk is not None
     code = (_check_pair(x, gain, xk, gk, BWD_KERNEL) if pair
             else _check(x, gain, "x", BWD_KERNEL))
@@ -169,9 +224,13 @@ def _bwd_launch(x, gain, dy, xk=None, gk=None, dyk=None, eps=1e-6):
         checks.check(dyk, "dyk", xk.dtype, xk.shape, xk.device)
     d = x.shape[1]
     t_k = xk.shape[0] if pair else 0
-    rows = partial_rows(x.shape[0]) + partial_rows(t_k)
-    partial = torch.empty((max(rows, 1), d), dtype=torch.float32,
-                          device=x.device)
+    tensors = (x, gain, dy, xk, gk, dyk) if pair else (x, gain, dy)
+    aligned = all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
+    layout, blocks, per = bwd_plan(x.shape[0], d, x.dtype, aligned)
+    _, blocks_k, per_k = bwd_plan(t_k, d, x.dtype, aligned)
+    lanes, _ = bwd_row_threads(layout, d, x.dtype)
+    partial = torch.empty((max(blocks + blocks_k, 1), d),
+                          dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dg = torch.empty(d, dtype=torch.float32, device=x.device)
     dxk = torch.empty_like(xk) if pair else None
@@ -187,7 +246,7 @@ def _bwd_launch(x, gain, dy, xk=None, gk=None, dyk=None, eps=1e-6):
                x.data_ptr(), gain.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                dg.data_ptr(), x.shape[0], ptr(xk), ptr(gk), ptr(dyk),
                ptr(dxk), ptr(dgk), t_k, partial.data_ptr(), d, float(eps),
-               code)
+               code, BWD_LAYOUTS.index(layout), lanes, per, per_k)
     launch_counts[BWD_KERNEL] += BWD_LAUNCHES
     return (dx, dg, dxk, dgk) if pair else (dx, dg)
 
@@ -197,8 +256,9 @@ def rmsnorm_bwd(x: torch.Tensor, gain: torch.Tensor, dy: torch.Tensor, *,
     """The gradient of :func:`rmsnorm` at x ``[T, D]`` and gain ``[D]``
     for the output gradient dy ``[T, D]`` (all one dtype, contiguous):
     (dx in x's dtype, dgain float32). Two launches on the card (the rows,
-    then the gain's reduction in a fixed order: no float atomics); the plain
-    backward on the CPU."""
+    each read once, by the plan :func:`bwd_plan` gives; then the gain's
+    reduction in a fixed order: no float atomics, so the bits repeat); the
+    plain backward on the CPU."""
     if checks.runs_plain(x):
         return checks.run_plain(BWD_KERNEL, rmsnorm_bwd_plain, x, gain, dy,
                                 eps)

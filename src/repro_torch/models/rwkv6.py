@@ -156,7 +156,10 @@ def _shifted(x: torch.Tensor, state: Optional[dict]) -> torch.Tensor:
     else x moved one step right behind a zero row."""
     if state is not None:
         return state["shift"][:, None, :].to(x.dtype)
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    # a zero row, then every row but the last: F.pad's values, from ops
+    # that DTensor's sharding rules cover (its propagation of
+    # constant_pad_nd raised IndexError on torch 2.11)
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
 
 
 def time_mix(params, x: torch.Tensor, cfg: RWKV6Config,

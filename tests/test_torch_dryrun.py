@@ -123,3 +123,36 @@ def test_a_failing_cell_writes_an_error_record(tmp_path, monkeypatch):
                       "qwen3-8b__train_4k.json").read_text())
     assert "no sharding rule" in rec["error"]
     release_mesh()
+
+
+def test_rwkv6_shift_is_the_padded_shift():
+    """``_shifted`` (a zero row, then every row but the last) gives
+    ``F.pad``'s bits, which it replaced so that the dry-run's DTensors
+    lower it."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.rwkv6 import _shifted
+
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (1, 2, 17):
+            x = torch.randn(3, s, 8, generator=gen).to(dtype)
+            want = F.pad(x, (0, 0, 1, 0))[:, :-1]
+            got = _shifted(x, None)
+            assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_cut_rwkv6_prefill_cell_lowers(mesh, monkeypatch):
+    """RWKV6's prefill cell, cut to 2 layers and 128 tokens, lowers on the
+    (16, 16) mesh to a record with no error. Its token shift, written with
+    ``F.pad``, stopped DTensor's propagation with an IndexError on torch
+    2.11; torch 2.13 lowered that form too, so under 2.13 this test holds
+    the cell but not the repair, which only a 2.11 run shows."""
+    import dataclasses
+
+    monkeypatch.setitem(SHAPES, "prefill_32k", dataclasses.replace(
+        SHAPES["prefill_32k"], seq_len=128))
+    rec = dryrun.lower_cell("rwkv6-1.6b", "prefill_32k", mesh, False,
+                            overrides=_cut())
+    assert "error" not in rec
+    assert rec["kind"] == "prefill" and rec["hlo_metrics"]["flops"] > 0

@@ -8,7 +8,11 @@ machine with a card and no JAX::
 
 Every test needs a card and skips without one. Tolerances are those of
 ``tests/test_kernels.py:22-23`` (float32 2e-3, bfloat16 3e-2), applied to
-a gradient as max|got - want| <= tol * (1 + max|want|).
+a gradient as max|got - want| <= tol * (1 + max|want|). Every kernel call
+is made twice and held bitwise (no float atomics): the bfloat16 attention
+backward over D in {16, 32, 64, 128}, G in {1, 3, 4}, S in {1, 63, 64, 77,
+256}, causal and not; the rmsnorm backward in each of its layouts (rows,
+block, scalar, an offset view among them).
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ from repro_torch.kernels.flash_attention.ops import (
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_plain
 from repro_torch.kernels.rmsnorm.ops import (
+    bwd_plan,
     rmsnorm,
     rmsnorm_bwd,
     rmsnorm_pair_bwd,
@@ -40,6 +45,20 @@ ATTN_SHAPES = [  # (B, H, K, S, D, causal)
     (2, 4, 4, 64, 16, True),      # G = 1, one whole tile
     (2, 16, 16, 130, 64, False),  # the Seamless encoder's (non-causal)
     (1, 8, 2, 33, 32, False),
+]
+
+# The bfloat16 tensor-core backward over every head dim, GQA group, a
+# ragged, a whole and a one-position S, causal and not: (D, G, S, causal).
+BF16_GRID = [(d, g, s, causal) for d in (16, 32, 64, 128) for g in (1, 3, 4)
+             for s in (1, 63, 64, 77, 256) for causal in (True, False)]
+# rmsnorm backward rows reaching each layout in bfloat16: (rows, D, offset
+# of the view in elements, layout); float32 runs the same rows
+RMS_LAYOUTS = [
+    (2048, 512, 0, "rows"), (4096, 128, 0, "rows"), (7, 16, 0, "rows"),
+    (2048, 576, 0, "block"),
+    (2048, 4096, 0, "block"), (1000, 3072, 0, "block"),
+    (64, 7168, 0, "block"), (300, 100, 0, "scalar"), (129, 256, 1, "scalar"),
+    (257, 1030, 0, "scalar"), (40, 16384, 0, "scalar"),
 ]
 
 pytestmark = pytest.mark.cuda
@@ -127,6 +146,91 @@ def test_flash_attention_bwd_kernel_matches_plain(card, shape, dtype):
     again = flash_attention_bwd(q, k, v, o, do, causal=causal)
     for a, a2 in zip(got, again):
         assert torch.equal(a, a2)  # no atomics: bitwise
+
+
+@pytest.mark.parametrize("d, g, s, causal", BF16_GRID,
+                         ids=lambda v: str(v))
+def test_flash_attention_bwd_tensor_cores(card, d, g, s, causal):
+    b, kh = 2, 2
+    h = g * kh
+    rng = np.random.default_rng(d * 1000 + g * 100 + s + int(causal))
+    dtype = torch.bfloat16
+    q, do = (_randn(rng, b, s, h, d, dtype=dtype,
+                    device=card).transpose(1, 2) for _ in range(2))
+    k, v = (_randn(rng, b, s, kh, d, dtype=dtype,
+                   device=card).transpose(1, 2) for _ in range(2))
+    o = flash_attention(q, k, v, causal=causal)
+    reset_launch_counts()
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert launch_counts["flash_attention_bwd"] == 4
+    want = flash_attention_bwd_plain(q, k, v, o, do, causal)
+    for name, a, a2, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.shape == w.shape and a.is_contiguous()
+        _close(name, a, w, dtype)
+        assert torch.equal(a, a2)  # no atomics: bitwise
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t, d, offset, layout", RMS_LAYOUTS, ids=str)
+def test_rmsnorm_bwd_every_layout(card, t, d, offset, layout, dtype):
+    rng = np.random.default_rng(t * 7 + d)
+    flat = _randn(rng, t * d + offset, scale=3.0, dtype=dtype, device=card)
+    x = flat[offset:].view(t, d)
+    g = _randn(rng, d, scale=0.2, shift=1.0, dtype=dtype, device=card)
+    dy = _randn(rng, t, d, dtype=dtype, device=card)
+    aligned = all(z.data_ptr() % 16 == 0 for z in (x, g, dy))
+    if dtype == torch.bfloat16:
+        assert bwd_plan(t, d, dtype, aligned)[0] == layout
+    reset_launch_counts()
+    dx, dg = rmsnorm_bwd(x, g, dy)
+    dx2, dg2 = rmsnorm_bwd(x, g, dy)
+    torch.cuda.synchronize()
+    assert launch_counts["rmsnorm_bwd"] == 4
+    want_dx, want_dg = rmsnorm_bwd_plain(x, g, dy)
+    _close("dx", dx, want_dx, dtype)
+    _close("dgain", dg, want_dg, dtype)
+    assert torch.equal(dx, dx2) and torch.equal(dg, dg2)  # bitwise
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "out", "dout"])
+def test_flash_attention_bwd_raises_on_misaligned_bf16(card, name):
+    b, h, kh, s, d = 1, 4, 2, 40, 32
+    rng = np.random.default_rng(1)
+    t = {n: _randn(rng, b, s, heads, d, dtype=torch.bfloat16,
+                   device=card).transpose(1, 2)
+         for n, heads in (("q", h), ("k", kh), ("v", kh), ("out", h),
+                          ("dout", h))}
+    # the same values at a position stride of d + 1 elements
+    bad = torch.zeros(b, t[name].shape[1], s, d + 1, dtype=torch.bfloat16,
+                      device=card)[..., :d]
+    bad.copy_(t[name])
+    t[name] = bad
+    with pytest.raises(ValueError, match=f"^{name} .*16 bytes"):
+        flash_attention_bwd(t["q"], t["k"], t["v"], t["out"], t["dout"])
+
+
+def test_function_backward_copies_an_unaligned_dout(card):
+    """Autograd hands the backward an output gradient with rows off 16
+    bytes: the Function copies it, and the kernel's gradient equals the
+    one of an aligned copy bitwise."""
+    b, h, kh, s, d = 2, 4, 2, 48, 64
+    rng = np.random.default_rng(2)
+    q = _randn(rng, b, s, h, d, dtype=torch.bfloat16,
+               device=card).transpose(1, 2).requires_grad_(True)
+    k, v = (_randn(rng, b, s, kh, d, dtype=torch.bfloat16,
+                   device=card).transpose(1, 2).requires_grad_(True)
+            for _ in range(2))
+    out = flash_attention(q, k, v)
+    do = torch.zeros(b, h, s, d + 1, dtype=torch.bfloat16,
+                     device=card)[..., :d]
+    do.copy_(_randn(rng, b, h, s, d, dtype=torch.bfloat16, device=card))
+    out.backward(do)
+    want = flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                               out.detach(), do.contiguous())
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, w)
 
 
 def test_functions_launch_the_backward_kernels(card):

@@ -11,6 +11,7 @@ and where it arose. One JSON line a cell goes to stdout and to
     PYTHONPATH=src python tools/dryrun_matrix.py --mesh multi --limit 90 \\
         --skip jamba-v0.1-52b:train_4k,jamba-v0.1-52b:prefill_32k
     PYTHONPATH=src python tools/dryrun_matrix.py --layers 2   # depth-cut
+    PYTHONPATH=src python tools/dryrun_matrix.py --arch rwkv6-1.6b
 
 It needs no card: the counts are shape-only, on the CPU.
 """
@@ -84,6 +85,8 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=0,
                     help="cut every cell to this depth (0: full)")
     ap.add_argument("--skip", default="", help="arch:shape,... to leave out")
+    ap.add_argument("--arch", default="",
+                    help="arch,... to keep (default: every arch)")
     ap.add_argument("--out", default="chiprun_out/dryrun_matrix.jsonl")
     args = ap.parse_args(argv)
 
@@ -93,8 +96,9 @@ def main(argv=None) -> int:
     from repro_torch.launch.dryrun import list_cells
 
     skip = set(filter(None, args.skip.split(",")))
+    archs = [a for a in args.arch.split(",") if a] or list(ARCH_IDS)
     jobs = [(c[0], c[1], args.mesh == "multi", args.layers, args.limit)
-            for c in list_cells(ARCH_IDS, list(SHAPES))
+            for c in list_cells(archs, list(SHAPES))
             if len(c) == 2 and f"{c[0]}:{c[1]}" not in skip]
     print(json.dumps({"torch": torch.__version__, "mesh": args.mesh,
                       "cells": len(jobs)}), flush=True)
