@@ -4016,6 +4016,74 @@ def ptxas_budget(name):
     return rows
 
 
+def phase_audit(launched):
+    """The launch audit on the card; launches nothing. For each of the
+    seven kernels, at every envelope (the manifest's, and each set of plan
+    arguments this run launched it with, ``launched``: what
+    ``kernels/checks.py::recording`` gathered) and over the card-dependent
+    range, the C ``<kernel>_plan`` of the built library must equal the
+    Python ``launch_plan`` (LCH000) and the plan keep the launch limits
+    (LCH001-LCH003); then every entry a plan launches is held to this
+    build's ptxas report (LCH004: registers x threads, spills; LCH003 with
+    the static shared memory). Fails on any finding that
+    ``tools/lint_torch_baseline.json`` does not hold."""
+    from repro_torch.analysis import launch_audit, manifest
+    from repro_torch.analysis.baseline import Baseline
+    from repro_torch.analysis.runner import BASELINE, layer_of
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    baseline = Baseline.load(str(ROOT.joinpath(*BASELINE)))
+    baseline = Baseline([e for e in baseline.entries
+                         if layer_of(e["rule"]) in ("launch", "card")])
+    found, kernels = [], {}
+    for spec in manifest.KERNEL_SPECS:
+        ops = spec.ops()
+        ran = [dict(k) for k in sorted(launched.get(spec.name, ()))]
+        envs = manifest.dedup(spec.envelopes() + ran)
+        points = manifest.device_points(spec)
+        f_c, compared = launch_audit.c_plan_findings(spec, envs, points)
+        f_py, _ = launch_audit.audit_kernel(spec, envs)
+        # per entry, the launches with the most threads and the most
+        # shared memory: the ones ptxas's numbers bound
+        widest = {}
+        for args in envs:
+            for point in points:
+                try:
+                    plan = getattr(ops, spec.plan)(**args, **point)
+                except ValueError:
+                    continue
+                for launch in plan:
+                    threads = (launch.block[0] * launch.block[1]
+                               * launch.block[2])
+                    for key, value in (("threads", threads),
+                                       ("smem", launch.smem)):
+                        best = widest.get((launch.entry, key))
+                        if best is None or value > best[0]:
+                            widest[(launch.entry, key)] = (value, launch)
+        f_ptx, rows = launch_audit.ptxas_findings(
+            spec.name, [l for _, l in widest.values()],
+            build.BUILD_LOG.get(spec.name, {}).get("ptxas", ""))
+        new, accepted, _ = baseline.split(f_c + f_py + f_ptx)
+        found += new
+        kernels[spec.name] = {
+            "envelopes": len(envs), "launched": len(ran),
+            "plans_compared": compared, "findings": len(new),
+            "baselined": len(accepted),
+            "entries": {e: {k: r.get(k) for k in (
+                "registers", "spill_stores", "spill_loads", "smem_static")}
+                for e, r in sorted(rows.items())}}
+    print(json.dumps({"audit": {
+        "kernels": kernels,
+        "envelopes": sum(k["envelopes"] for k in kernels.values()),
+        "findings": len(found),
+        "baselined": sum(k["baselined"] for k in kernels.values()),
+        "seconds": time.perf_counter() - t0}}), flush=True)
+    if found:
+        raise SystemExit("audit: " + "; ".join(f.format() for f in found))
+    return kernels
+
+
 BWD_KERNEL_ROWS = {
     # kernel: (source, what it replaces, the main timed case)
     "rmsnorm_bwd": ("src/repro_torch/csrc/rmsnorm_bwd.cu",
@@ -4142,29 +4210,32 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import FULL, get_config
+    from repro_torch.kernels import checks
 
     lm_configs = {arch: get_config(arch) for arch in LM_ARCHS}
-    phase_device_and_build()
-    kernel = phase_kernel("cuda")
-    lm_kernels = phase_lm_kernels(lm_configs, "cuda")
-    served = phase_models(FULL, "cuda")
-    resnet_launches = phase_serving(served, "cuda")
-    del served
-    torch.cuda.empty_cache()
-    sim_launches = phase_sim("cuda")
-    fleet_launches = phase_fleet("cuda")
-    phase_scan("cuda")
-    phase_lm_models(lm_configs, "cuda")
-    phase_lm_decode_models(lm_configs, "cuda")
-    lm_launches, served, lm_table = phase_lm_serving(lm_configs, "cuda")
-    decode_launches = phase_lm_decode(served, "cuda")
-    del served
-    torch.cuda.empty_cache()
-    cost_launches = phase_cost("cuda", lm_configs, lm_table)
-    zoo_launches, zoo_kernels = phase_lm_zoo("cuda")
-    multi_launches, multi_timings = phase_lm_multi("cuda")
-    torch.cuda.empty_cache()
-    train_launches, train_kernels = phase_train("cuda")
+    with checks.recording() as launched:
+        phase_device_and_build()
+        kernel = phase_kernel("cuda")
+        lm_kernels = phase_lm_kernels(lm_configs, "cuda")
+        served = phase_models(FULL, "cuda")
+        resnet_launches = phase_serving(served, "cuda")
+        del served
+        torch.cuda.empty_cache()
+        sim_launches = phase_sim("cuda")
+        fleet_launches = phase_fleet("cuda")
+        phase_scan("cuda")
+        phase_lm_models(lm_configs, "cuda")
+        phase_lm_decode_models(lm_configs, "cuda")
+        lm_launches, served, lm_table = phase_lm_serving(lm_configs, "cuda")
+        decode_launches = phase_lm_decode(served, "cuda")
+        del served
+        torch.cuda.empty_cache()
+        cost_launches = phase_cost("cuda", lm_configs, lm_table)
+        zoo_launches, zoo_kernels = phase_lm_zoo("cuda")
+        multi_launches, multi_timings = phase_lm_multi("cuda")
+        torch.cuda.empty_cache()
+        train_launches, train_kernels = phase_train("cuda")
+    phase_audit(launched)
     print(json.dumps({"kernels": kernel_summary(
         kernel, resnet_launches, sim_launches, fleet_launches, lm_kernels,
         lm_launches, decode_launches, multi_launches, multi_timings,

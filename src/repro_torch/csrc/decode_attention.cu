@@ -99,6 +99,32 @@ struct Strides {
   int64_t q[2], k[3], v[3];
 };
 
+// One launch of a plan: the kernel entry (an index into ENTRIES in
+// kernels/decode_attention/ops.py), grid, block, dynamic shared memory bytes,
+// whether the launch path raises the 48 KB cap on it, and the blocks of a
+// cluster along x. The launch path takes its geometry from the plan, and
+// decode_attention_plan writes each launch as kPlanFields ints for the launch audit
+// (repro_torch/analysis/launch_audit.py), which holds it against
+// launch_plan in ops.py.
+struct Launch {
+  int entry;
+  dim3 grid, block;
+  int smem, optin, cluster;
+};
+constexpr int kPlanFields = 10;
+
+int write_plan(const Launch* l, int n, int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int row[kPlanFields] = {
+        l[i].entry, static_cast<int>(l[i].grid.x),
+        static_cast<int>(l[i].grid.y), static_cast<int>(l[i].grid.z),
+        static_cast<int>(l[i].block.x), static_cast<int>(l[i].block.y),
+        static_cast<int>(l[i].block.z), l[i].smem, l[i].optin, l[i].cluster};
+    for (int j = 0; j < kPlanFields; ++j) out[i * kPlanFields + j] = row[j];
+  }
+  return n;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -745,24 +771,21 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
 }  // namespace f32
 
-// One launch of `kernel` with grid (n_chunks, kv heads * head groups, b) and
-// clusters of n_chunks blocks along x.
+// One launch of `kernel` by the plan `l`: grid (n_chunks, kv heads * head
+// groups, b), clusters of n_chunks blocks along x.
 template <typename T, typename Kernel>
-int launch(Kernel kernel, int threads, int smem, int heads_per_block,
-           const void* q,
-           const void* k, const void* v, const int* lengths, void* out,
-           const Strides& st, int b, int h, int kh, int s_len, int chunk,
-           int n_chunks, float scale, cudaStream_t stream) {
-  const int group = h / kh;
-  const int n_hgroups = (group + heads_per_block - 1) / heads_per_block;
+int launch(Kernel kernel, const Launch& l, const void* q, const void* k,
+           const void* v, const int* lengths, void* out, const Strides& st,
+           int h, int kh, int s_len, int chunk, float scale,
+           cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_chunks, kh * n_hgroups, b);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.gridDim = l.grid;
+  cfg.blockDim = l.block;
+  cfg.dynamicSmemBytes = l.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_chunks;
+  attr[0].val.clusterDim.x = l.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -770,16 +793,15 @@ int launch(Kernel kernel, int threads, int smem, int heads_per_block,
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out), st, s_len, h,
-      group, chunk, scale * kLog2e);
+      h / kh, chunk, scale * kLog2e);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_d(int dtype, const void* q, const void* k, const void* v,
-             const int* lengths, void* out, const Strides& st, int b, int h,
-             int kh, int s_len, int chunk, int n_chunks, float scale,
-             cudaStream_t stream) {
+int launch_d(const Launch& l, const void* q, const void* k, const void* v,
+             const int* lengths, void* out, const Strides& st, int h, int kh,
+             int s_len, int chunk, float scale, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -793,16 +815,51 @@ int launch_d(int dtype, const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  if (dtype == 1) {
-    return launch<__nv_bfloat16>(
-        tc::decode_attention_kernel<D>, tc::kTcThreads, tc::Shape<D>::kSmem,
-        tc::kH, q, k, v, lengths, out, st, b, h, kh, s_len, chunk, n_chunks,
-        scale, stream);
+  if (l.entry < 4) {
+    return launch<__nv_bfloat16>(tc::decode_attention_kernel<D>, l, q, k, v,
+                                 lengths, out, st, h, kh, s_len, chunk,
+                                 scale, stream);
   }
-  return launch<float>(
-      f32::decode_attention_kernel<D>, kThreads, f32::Shape<D>::kSmem,
-      f32::kH, q, k, v, lengths, out, st, b, h, kh, s_len, chunk, n_chunks,
-      scale, stream);
+  return launch<float>(f32::decode_attention_kernel<D>, l, q, k, v, lengths,
+                       out, st, h, kh, s_len, chunk, scale, stream);
+}
+
+template <int D>
+Launch plan_d(int b, int h, int kh, int n_chunks, int dtype, int slot) {
+  const int group = h / kh;
+  if (dtype == 1) {
+    const int n_hgroups = (group + tc::kH - 1) / tc::kH;
+    return {slot, dim3(n_chunks, kh * n_hgroups, b), dim3(tc::kTcThreads),
+            tc::Shape<D>::kSmem, 1, n_chunks};
+  }
+  const int n_hgroups = (group + f32::kH - 1) / f32::kH;
+  return {4 + slot, dim3(n_chunks, kh * n_hgroups, b), dim3(kThreads),
+          f32::Shape<D>::kSmem, 1, n_chunks};
+}
+
+// Entries: tc::decode_attention_kernel<16, 32, 64, 128> (0-3), then f32::
+// at the same head dims (4-7). One launch: a block per (chunk, kv head x
+// head group, row), the n_chunks chunks of a (row, kv head, head group)
+// one cluster, the kernel's whole shared memory opted in; no launch for no
+// rows or heads, -1 where the launch refuses the arguments.
+int make_plan(int b, int h, int kh, int s_len, int d, int chunk,
+              int n_chunks, int dtype, Launch* out) {
+  if (b <= 0 || h <= 0) return 0;
+  const int slot = d == 16 ? 0 : d == 32 ? 1 : d == 64 ? 2 : d == 128 ? 3
+                                                                       : -1;
+  if (kh <= 0 || h % kh != 0 || chunk <= 0 || chunk % 32 != 0 ||
+      n_chunks < 1 || n_chunks > kMaxCluster ||
+      static_cast<int64_t>(chunk) * n_chunks < s_len || slot < 0 ||
+      (dtype != 0 && dtype != 1)) {
+    return -1;
+  }
+  switch (d) {
+    case 16: out[0] = plan_d<16>(b, h, kh, n_chunks, dtype, slot); break;
+    case 32: out[0] = plan_d<32>(b, h, kh, n_chunks, dtype, slot); break;
+    case 64: out[0] = plan_d<64>(b, h, kh, n_chunks, dtype, slot); break;
+    default: out[0] = plan_d<128>(b, h, kh, n_chunks, dtype, slot); break;
+  }
+  return 1;
 }
 
 // cp.async moves 16-byte rows: every base pointer 16-byte aligned and every
@@ -837,12 +894,10 @@ extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, const int64_t* strides, int b, int h, int kh, int s_len, int d,
     int chunk, int n_chunks, float scale, int dtype, void* stream) {
-  if (b <= 0 || h <= 0) return static_cast<int>(cudaGetLastError());
-  if (kh <= 0 || h % kh != 0 || chunk <= 0 || chunk % 32 != 0 ||
-      n_chunks < 1 || n_chunks > kMaxCluster ||
-      static_cast<int64_t>(chunk) * n_chunks < s_len) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  Launch l[1];
+  const int n = make_plan(b, h, kh, s_len, d, chunk, n_chunks, dtype, l);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   Strides st;
   st.q[0] = strides[0];
   st.q[1] = strides[1];
@@ -856,10 +911,20 @@ extern "C" int decode_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* len = static_cast<const int*>(lengths);
   switch (d) {
-    case 16: return launch_d<16>(dtype, q, k, v, len, out, st, b, h, kh, s_len, chunk, n_chunks, scale, s);
-    case 32: return launch_d<32>(dtype, q, k, v, len, out, st, b, h, kh, s_len, chunk, n_chunks, scale, s);
-    case 64: return launch_d<64>(dtype, q, k, v, len, out, st, b, h, kh, s_len, chunk, n_chunks, scale, s);
-    case 128: return launch_d<128>(dtype, q, k, v, len, out, st, b, h, kh, s_len, chunk, n_chunks, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch_d<16>(l[0], q, k, v, len, out, st, h, kh, s_len, chunk, scale, s);
+    case 32: return launch_d<32>(l[0], q, k, v, len, out, st, h, kh, s_len, chunk, scale, s);
+    case 64: return launch_d<64>(l[0], q, k, v, len, out, st, h, kh, s_len, chunk, scale, s);
+    default: return launch_d<128>(l[0], q, k, v, len, out, st, h, kh, s_len, chunk, scale, s);
   }
+}
+
+// The plan of decode_attention_launch at these arguments (see make_plan):
+// writes each launch's kPlanFields ints to `plan` and returns their number
+// (-1 where the launch refuses them).
+extern "C" int decode_attention_plan(int b, int h, int kh, int s_len, int d,
+                                     int chunk, int n_chunks, int dtype,
+                                     int* plan) {
+  Launch l[1];
+  const int n = make_plan(b, h, kh, s_len, d, chunk, n_chunks, dtype, l);
+  return n < 0 ? n : write_plan(l, n, plan);
 }

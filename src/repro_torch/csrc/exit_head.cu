@@ -76,6 +76,34 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 256;  // features staged per step
 
+// One launch of a plan: the kernel entry (an index into ENTRIES in
+// kernels/exit_head/ops.py), grid, block, dynamic shared memory bytes,
+// whether the launch path raises the 48 KB cap on it, and the blocks of a
+// cluster along x. The launch path takes its geometry from the plan, and
+// exit_head_plan writes each launch as kPlanFields ints for the launch audit
+// (repro_torch/analysis/launch_audit.py), which holds it against
+// launch_plan in ops.py.
+struct Launch {
+  int entry;
+  dim3 grid, block;
+  int smem, optin, cluster;
+};
+constexpr int kPlanFields = 10;
+
+int write_plan(const Launch* l, int n, int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int row[kPlanFields] = {
+        l[i].entry, static_cast<int>(l[i].grid.x),
+        static_cast<int>(l[i].grid.y), static_cast<int>(l[i].grid.z),
+        static_cast<int>(l[i].block.x), static_cast<int>(l[i].block.y),
+        static_cast<int>(l[i].block.z), l[i].smem, l[i].optin, l[i].cluster};
+    for (int j = 0; j < kPlanFields; ++j) out[i * kPlanFields + j] = row[j];
+  }
+  return n;
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -560,11 +588,10 @@ __global__ void __launch_bounds__(kThreads) exit_head_tc(
   cp_async_wait<0>();  // only empty groups can be left
 }
 
+// The SMs and the blocks of exit_head_tc<ROWS> resident on one at width
+// d: the persistent grid's size, which the plan takes as arguments.
 template <int ROWS>
-int launch(const void* h, const void* g, const void* w, int t_len, int d,
-           int v_len, float eps, float* pm, int32_t* pa, float* pl,
-           cudaStream_t stream) {
-  const int smem = smem_bytes(ROWS, d);
+int occupancy(int d, int* sms, int* per) {
   static bool configured = false;
   static int n_sm = 0;
   static int cached_d = -1;
@@ -584,59 +611,58 @@ int launch(const void* h, const void* g, const void* w, int t_len, int d,
   }
   if (d != cached_d) {
     cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, exit_head_tc<ROWS>, kThreads, smem);
+        &per_sm, exit_head_tc<ROWS>, kThreads, smem_bytes(ROWS, d));
     if (err != cudaSuccess) return static_cast<int>(err);
     cached_d = d;
   }
-  // A persistent grid: as many blocks as are resident at once, each given
-  // the same number of tiles.
-  const int n_tiles = (v_len + kBN - 1) / kBN;
-  const int resident = (per_sm > 1 ? per_sm : 1) * n_sm;
-  int blocks = n_tiles < resident ? n_tiles : resident;
-  const int per_block = (n_tiles + blocks - 1) / blocks;
-  blocks = (n_tiles + per_block - 1) / per_block;
-  dim3 grid(blocks, (t_len + ROWS - 1) / ROWS);
-  exit_head_tc<ROWS><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(w), t_len, d, v_len, eps, n_tiles, pm, pa, pl);
-  return static_cast<int>(cudaGetLastError());
+  *sms = n_sm;
+  *per = per_sm;
+  return 0;
 }
 
-int by_rows(const void* h, const void* g, const void* w, int t_len, int d,
-            int v_len, float eps, float* pm, int32_t* pa, float* pl,
-            cudaStream_t stream) {
-  if (t_len == 1) return launch<1>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
-  if (t_len == 2) return launch<2>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
-  if (t_len <= 4) return launch<4>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
-  return launch<8>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
+int occupancy_by_rows(int t_len, int d, int* sms, int* per) {
+  if (t_len == 1) return occupancy<1>(d, sms, per);
+  if (t_len == 2) return occupancy<2>(d, sms, per);
+  if (t_len <= 4) return occupancy<4>(d, sms, per);
+  return occupancy<8>(d, sms, per);
+}
+
+template <int ROWS>
+void launch(const Launch& l, const void* h, const void* g, const void* w,
+            int t_len, int d, int v_len, float eps, float* pm, int32_t* pa,
+            float* pl, cudaStream_t stream) {
+  exit_head_tc<ROWS><<<l.grid, l.block, l.smem, stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(g),
+      static_cast<const bf16*>(w), t_len, d, v_len, eps,
+      (v_len + kBN - 1) / kBN, pm, pa, pl);
 }
 
 }  // namespace tc
 
 template <typename T, int ROWS, bool ALIGNED>
-void launch_tiles(const void* h, const void* g, const void* w, int t_len,
-                  int d, int v_len, float eps, float* pm, int32_t* pa,
-                  float* pl, cudaStream_t stream) {
-  constexpr int BV = 32 * (16 / sizeof(T));
-  dim3 grid((v_len + BV - 1) / BV, (t_len + ROWS - 1) / ROWS);
-  exit_head_tiles<T, ROWS, ALIGNED><<<grid, kThreads, 0, stream>>>(
+void launch_tiles(const Launch& l, const void* h, const void* g,
+                  const void* w, int t_len, int d, int v_len, float eps,
+                  float* pm, int32_t* pa, float* pl, cudaStream_t stream) {
+  exit_head_tiles<T, ROWS, ALIGNED><<<l.grid, l.block, 0, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(g),
       static_cast<const T*>(w), t_len, d, v_len, eps, pm, pa, pl);
 }
 
 template <typename T, bool ALIGNED>
-void by_rows(const void* h, const void* g, const void* w, int t_len, int d,
-             int v_len, float eps, float* pm, int32_t* pa, float* pl,
-             cudaStream_t stream) {
-  if (t_len == 1) {
-    launch_tiles<T, 1, ALIGNED>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
-  } else if (t_len == 2) {
-    launch_tiles<T, 2, ALIGNED>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
-  } else if (t_len <= 4) {
-    launch_tiles<T, 4, ALIGNED>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
-  } else {
-    launch_tiles<T, 8, ALIGNED>(h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream);
+void tiles_by_rows(const Launch& l, int slot, const void* h, const void* g,
+                   const void* w, int t_len, int d, int v_len, float eps,
+                   float* pm, int32_t* pa, float* pl, cudaStream_t stream) {
+  switch (slot) {
+    case 0: launch_tiles<T, 1, ALIGNED>(l, h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream); break;
+    case 1: launch_tiles<T, 2, ALIGNED>(l, h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream); break;
+    case 2: launch_tiles<T, 4, ALIGNED>(l, h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream); break;
+    default: launch_tiles<T, 8, ALIGNED>(l, h, g, w, t_len, d, v_len, eps, pm, pa, pl, stream); break;
   }
+}
+
+// The row-block size's slot (ROWS = 1, 2, 4, 8).
+int rows_slot(int t_len) {
+  return t_len == 1 ? 0 : t_len == 2 ? 1 : t_len <= 4 ? 2 : 3;
 }
 
 }  // namespace
@@ -650,6 +676,14 @@ extern "C" int exit_head_tensor_cores(int dtype, int aligned, int d) {
   return dtype == 1 && aligned && d <= tc::kMaxD ? 1 : 0;
 }
 
+// The persistent grid's card-dependent arguments on the current card, as
+// exit_head_launch reads them for t_len rows at width d on the tensor
+// cores: the SMs (*sms) and the pass-1 blocks resident on one (*per).
+// Returns the CUDA error.
+extern "C" int exit_head_occupancy(int t_len, int d, int* sms, int* per) {
+  return tc::occupancy_by_rows(t_len, d, sms, per);
+}
+
 // Columns per pass-1 tile of the kernel that exit_head_tensor_cores picks;
 // the wrapper sizes the scratch buffers [t_len, ceil(v_len / tile)] from it.
 extern "C" int exit_head_tile_cols(int dtype, int aligned, int d) {
@@ -657,12 +691,45 @@ extern "C" int exit_head_tile_cols(int dtype, int aligned, int d) {
   return dtype == 0 ? 128 : 256;
 }
 
+// Entries: tc::exit_head_tc<1, 2, 4, 8> (0-3); exit_head_tiles<float,
+// ROWS, ALIGNED> (4-11) and <__nv_bfloat16, ROWS, ALIGNED> (12-19), ROWS
+// 1, 2, 4, 8 each unaligned then aligned; exit_head_fold (20). Two
+// launches: pass 1, then the fold (a block a row). Pass 1 on the tensor
+// cores is a persistent grid: as many blocks as n_sm SMs hold at per_sm
+// each, every block given the same number of 128-column tiles, by ROWS
+// rows; on the CUDA cores a block per (column tile, ROWS rows). No launch
+// for no rows or columns, -1 where the launch refuses the arguments.
+int make_plan(int t_len, int d, int v_len, int dtype, int aligned, int n_sm,
+              int per_sm, Launch* out) {
+  if (t_len <= 0 || v_len <= 0) return 0;
+  const int slot = rows_slot(t_len);
+  const int rows = 1 << slot;
+  if (exit_head_tensor_cores(dtype, aligned, d)) {
+    if (v_len % 8 || n_sm < 1) return -1;
+    const int n_tiles = cdiv(v_len, tc::kBN);
+    const int resident = (per_sm > 1 ? per_sm : 1) * n_sm;
+    int blocks = n_tiles < resident ? n_tiles : resident;
+    const int per_block = cdiv(n_tiles, blocks);
+    blocks = cdiv(n_tiles, per_block);
+    out[0] = {slot, dim3(blocks, cdiv(t_len, rows)), dim3(tc::kThreads),
+              tc::smem_bytes(rows, d), 1, 1};
+  } else {
+    const int type = dtype == 0 ? 0 : 1;
+    out[0] = {4 + 8 * type + 2 * slot + (aligned ? 1 : 0),
+              dim3(cdiv(v_len, exit_head_tile_cols(dtype, aligned, d)),
+                   cdiv(t_len, rows)),
+              dim3(kThreads), 0, 0, 1};
+  }
+  out[1] = {20, dim3(t_len), dim3(kThreads), 0, 0, 1};
+  return 2;
+}
+
 // h [t_len, d], g [d], w [d, v_len] contiguous, one type (dtype 0 =
 // float32, 1 = bfloat16); `aligned` says that w's rows start on 16-byte
 // boundaries. part_* are float32/int32 scratch of t_len * n_tiles; idx, mx,
 // lse [t_len]. Launches pass 1 (on the tensor cores or the CUDA cores, see
-// exit_head_tensor_cores) and the fold on `stream` and returns a CUDA error
-// code (0 = launched).
+// exit_head_tensor_cores) and the fold on `stream` by make_plan and returns
+// a CUDA error code (0 = launched).
 extern "C" int exit_head_launch(const void* h, const void* g, const void* w,
                                 int t_len, int d, int v_len, float eps,
                                 int dtype, int aligned, float* part_m,
@@ -670,24 +737,49 @@ extern "C" int exit_head_launch(const void* h, const void* g, const void* w,
                                 float* mx, float* lse, void* stream) {
   if (t_len <= 0 || v_len <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (exit_head_tensor_cores(dtype, aligned, d)) {
-    if (reinterpret_cast<uintptr_t>(w) % 16 || v_len % 8) {
+  const bool tensor_cores = exit_head_tensor_cores(dtype, aligned, d);
+  int n_sm = 1, per_sm = 1;
+  if (tensor_cores) {
+    if (reinterpret_cast<uintptr_t>(w) % 16) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int err = tc::by_rows(h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
+    const int err = tc::occupancy_by_rows(t_len, d, &n_sm, &per_sm);
     if (err != 0) return err;
+  }
+  Launch l[2];
+  if (make_plan(t_len, d, v_len, dtype, aligned, n_sm, per_sm, l) != 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int slot = rows_slot(t_len);
+  if (tensor_cores) {
+    switch (slot) {
+      case 0: tc::launch<1>(l[0], h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s); break;
+      case 1: tc::launch<2>(l[0], h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s); break;
+      case 2: tc::launch<4>(l[0], h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s); break;
+      default: tc::launch<8>(l[0], h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s); break;
+    }
   } else if (dtype == 0) {
-    if (aligned) by_rows<float, true>(h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
-    else by_rows<float, false>(h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
+    if (aligned) tiles_by_rows<float, true>(l[0], slot, h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
+    else tiles_by_rows<float, false>(l[0], slot, h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
   } else {
-    if (aligned) by_rows<__nv_bfloat16, true>(h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
-    else by_rows<__nv_bfloat16, false>(h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
+    if (aligned) tiles_by_rows<__nv_bfloat16, true>(l[0], slot, h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
+    else tiles_by_rows<__nv_bfloat16, false>(l[0], slot, h, g, w, t_len, d, v_len, eps, part_m, part_a, part_l, s);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int cols = exit_head_tile_cols(dtype, aligned, d);
-  exit_head_fold<<<t_len, kThreads, 0, s>>>(part_m, part_a, part_l,
-                                            (v_len + cols - 1) / cols, idx,
-                                            mx, lse);
+  exit_head_fold<<<l[1].grid, l[1].block, 0, s>>>(
+      part_m, part_a, part_l, (v_len + cols - 1) / cols, idx, mx, lse);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of exit_head_launch at these arguments on a card of n_sm SMs
+// that holds per_sm pass-1 blocks on each (see make_plan): writes each
+// launch's kPlanFields ints to `plan` and returns their number (-1 where
+// the launch refuses them).
+extern "C" int exit_head_plan(int t_len, int d, int v_len, int dtype,
+                              int aligned, int n_sm, int per_sm, int* plan) {
+  Launch l[2];
+  const int n = make_plan(t_len, d, v_len, dtype, aligned, n_sm, per_sm, l);
+  return n < 0 ? n : write_plan(l, n, plan);
 }

@@ -89,6 +89,32 @@ struct Strides {
   int64_t q[3], k[3], v[3], o[3];
 };
 
+// One launch of a plan: the kernel entry (an index into ENTRIES in
+// kernels/flash_attention/ops.py), grid, block, dynamic shared memory bytes,
+// whether the launch path raises the 48 KB cap on it, and the blocks of a
+// cluster along x. The launch path takes its geometry from the plan, and
+// flash_attention_plan writes each launch as kPlanFields ints for the launch audit
+// (repro_torch/analysis/launch_audit.py), which holds it against
+// launch_plan in ops.py.
+struct Launch {
+  int entry;
+  dim3 grid, block;
+  int smem, optin, cluster;
+};
+constexpr int kPlanFields = 10;
+
+int write_plan(const Launch* l, int n, int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int row[kPlanFields] = {
+        l[i].entry, static_cast<int>(l[i].grid.x),
+        static_cast<int>(l[i].grid.y), static_cast<int>(l[i].grid.z),
+        static_cast<int>(l[i].block.x), static_cast<int>(l[i].block.y),
+        static_cast<int>(l[i].block.z), l[i].smem, l[i].optin, l[i].cluster};
+    for (int j = 0; j < kPlanFields; ++j) out[i * kPlanFields + j] = row[j];
+  }
+  return n;
+}
+
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores
 // ---------------------------------------------------------------------------
@@ -372,20 +398,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const Strides& st, int b, int h, int s_len, int group,
-           float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+int launch(const Launch& l, const void* q, const void* k, const void* v,
+           void* out, const Strides& st, int s_len, int group, float scale,
+           int causal, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  dim3 grid(h, b, (s_len + kBQ - 1) / kBQ);
-  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<D><<<l.grid, l.block, l.smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), st, s_len, group,
       scale * 1.4426950408889634f, causal);
@@ -565,20 +589,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const Strides& st, int b, int h, int s_len, int group,
-           float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
+int launch(const Launch& l, const void* q, const void* k, const void* v,
+           void* out, const Strides& st, int s_len, int group, float scale,
+           int causal, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  dim3 grid((s_len + kBQ - 1) / kBQ, h, b);
-  flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_kernel<D><<<l.grid, l.block, l.smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), st, s_len,
       group, scale, causal);
@@ -588,15 +610,43 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace f32
 
 template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out,
-           const Strides& st, int b, int h, int s_len, int group,
-           float scale, int causal, cudaStream_t stream) {
-  if (dtype == 0) {
-    return f32::launch<D>(q, k, v, out, st, b, h, s_len, group, scale,
-                          causal, stream);
+int launch(const Launch& l, const void* q, const void* k, const void* v,
+           void* out, const Strides& st, int s_len, int group, float scale,
+           int causal, cudaStream_t stream) {
+  if (l.entry >= 4) {
+    return f32::launch<D>(l, q, k, v, out, st, s_len, group, scale, causal,
+                          stream);
   }
-  return tc::launch<D>(q, k, v, out, st, b, h, s_len, group, scale, causal,
+  return tc::launch<D>(l, q, k, v, out, st, s_len, group, scale, causal,
                        stream);
+}
+
+template <int D>
+int smem_of(int dtype) {
+  return dtype == 1 ? tc::smem_bytes<D>()
+                    : f32::smem_floats<D>() * static_cast<int>(sizeof(float));
+}
+
+// Entries: tc::flash_attention_kernel<16, 32, 64, 128> (0-3), then
+// f32:: at the same head dims (4-7). One launch: a block per (head, row,
+// 64 query positions) with the whole kernel's shared memory opted in; -1
+// where the launch refuses the shape.
+int make_plan(int b, int h, int kh, int s_len, int d, int dtype,
+              Launch* out) {
+  if (b <= 0 || h <= 0 || s_len <= 0) return 0;
+  const int slot = d == 16 ? 0 : d == 32 ? 1 : d == 64 ? 2 : d == 128 ? 3
+                                                                       : -1;
+  if (slot < 0 || kh <= 0 || h % kh || (dtype != 0 && dtype != 1)) return -1;
+  const int smem = d == 16 ? smem_of<16>(dtype) : d == 32 ? smem_of<32>(dtype)
+                   : d == 64 ? smem_of<64>(dtype) : smem_of<128>(dtype);
+  if (dtype == 1) {
+    out[0] = {slot, dim3(h, b, (s_len + tc::kBQ - 1) / tc::kBQ),
+              dim3(tc::kThreads), smem, 1, 1};
+  } else {
+    out[0] = {4 + slot, dim3((s_len + f32::kBQ - 1) / f32::kBQ, h, b),
+              dim3(f32::kThreads), smem, 1, 1};
+  }
+  return 1;
 }
 
 }  // namespace
@@ -612,9 +662,10 @@ extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out,
     const int64_t* strides, int b, int h, int kh, int s_len, int d,
     float scale, int causal, int dtype, void* stream) {
-  if (b <= 0 || h <= 0 || s_len <= 0) {
-    return static_cast<int>(cudaGetLastError());
-  }
+  Launch l[1];
+  const int n = make_plan(b, h, kh, s_len, d, dtype, l);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   // A dimension of size 1 never uses its stride: 0 keeps it out of the
   // alignment check.
   const int q_dims[3] = {b, h, s_len};
@@ -626,16 +677,25 @@ extern "C" int flash_attention_launch(
     st.v[i] = kv_dims[i] > 1 ? strides[6 + i] : 0;
     st.o[i] = q_dims[i] > 1 ? strides[9 + i] : 0;
   }
-  if (dtype != 0 && (dtype != 1 || !tc::aligned(q, k, v, out, st))) {
+  if (dtype == 1 && !tc::aligned(q, k, v, out, st)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = h / kh;
   switch (d) {
-    case 16: return launch<16>(dtype, q, k, v, out, st, b, h, s_len, group, scale, causal, s);
-    case 32: return launch<32>(dtype, q, k, v, out, st, b, h, s_len, group, scale, causal, s);
-    case 64: return launch<64>(dtype, q, k, v, out, st, b, h, s_len, group, scale, causal, s);
-    case 128: return launch<128>(dtype, q, k, v, out, st, b, h, s_len, group, scale, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<16>(l[0], q, k, v, out, st, s_len, group, scale, causal, s);
+    case 32: return launch<32>(l[0], q, k, v, out, st, s_len, group, scale, causal, s);
+    case 64: return launch<64>(l[0], q, k, v, out, st, s_len, group, scale, causal, s);
+    default: return launch<128>(l[0], q, k, v, out, st, s_len, group, scale, causal, s);
   }
+}
+
+// The plan of flash_attention_launch at these sizes (see make_plan):
+// writes each launch's kPlanFields ints to `plan` and returns their number
+// (-1 where the launch refuses the shape).
+extern "C" int flash_attention_plan(int b, int h, int kh, int s_len, int d,
+                                    int dtype, int* plan) {
+  Launch l[1];
+  const int n = make_plan(b, h, kh, s_len, d, dtype, l);
+  return n < 0 ? n : write_plan(l, n, plan);
 }

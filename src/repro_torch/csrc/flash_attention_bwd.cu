@@ -124,6 +124,32 @@ struct Strides {
   int64_t q[3], k[3], v[3], o[3], dout[3];  // batch, head, position
 };
 
+// One launch of a plan: the kernel entry (an index into ENTRIES in
+// kernels/flash_attention_bwd/ops.py), grid, block, dynamic shared memory bytes,
+// whether the launch path raises the 48 KB cap on it, and the blocks of a
+// cluster along x. The launch path takes its geometry from the plan, and
+// flash_attention_bwd_plan writes each launch as kPlanFields ints for the launch audit
+// (repro_torch/analysis/launch_audit.py), which holds it against
+// launch_plan in ops.py.
+struct Launch {
+  int entry;
+  dim3 grid, block;
+  int smem, optin, cluster;
+};
+constexpr int kPlanFields = 10;
+
+int write_plan(const Launch* l, int n, int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int row[kPlanFields] = {
+        l[i].entry, static_cast<int>(l[i].grid.x),
+        static_cast<int>(l[i].grid.y), static_cast<int>(l[i].grid.z),
+        static_cast<int>(l[i].block.x), static_cast<int>(l[i].block.y),
+        static_cast<int>(l[i].block.z), l[i].smem, l[i].optin, l[i].cluster};
+    for (int j = 0; j < kPlanFields; ++j) out[i * kPlanFields + j] = row[j];
+  }
+  return n;
+}
+
 // The tiles of S positions, and the scratch's row length (lse and delta
 // [B, H, s_pad]).
 constexpr int kTile = 64;
@@ -692,26 +718,23 @@ __global__ void __launch_bounds__(kDkvThreads) dkv_kernel(Args p) {
 }
 
 template <int D>
-int launch(const Args& a, int b, cudaStream_t stream) {
-  constexpr int dq_smem = smem_bytes<D>(false);
-  constexpr int dkv_smem = smem_bytes<D>(true);
+int launch(const Args& a, const Launch* l, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+        dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, l[0].smem);
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(dkv_kernel<D>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 dkv_smem);
+                                 l[1].smem);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int tiles = n_tiles(a.s);
-  dq_kernel<D><<<dim3(a.h, b, tiles), kThreads, dq_smem, stream>>>(a);
+  dq_kernel<D><<<l[0].grid, l[0].block, l[0].smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_kernel<D><<<dim3(a.kh, b, tiles), kDkvThreads, dkv_smem, stream>>>(a);
+  dkv_kernel<D><<<l[1].grid, l[1].block, l[1].smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1072,29 +1095,28 @@ dkv_kernel(Args<T> p) {
   }
 }
 
+// dq's and dkv's shared memory: Q, K, V, dO tiles of [kTile][D + 1] and
+// one (dq) or two (dkv) [kTile][kTile + 1] score tiles, then lse and delta.
+constexpr int smem_bytes(int d, bool dkv) {
+  return (4 * kTile * (d + 1) + (dkv ? 2 : 1) * kTile * (kTile + 1) +
+          2 * kTile) * static_cast<int>(sizeof(float));
+}
+
 template <typename T, int D>
-int launch_typed(const Args<T>& args, int b, cudaStream_t stream) {
-  const int tiles = (args.s + kTile - 1) / kTile;
-  const size_t dq_smem =
-      (4 * kTile * (D + 1) + kTile * (kTile + 1) + 2 * kTile) * sizeof(float);
-  const size_t dkv_smem =
-      (4 * kTile * (D + 1) + 2 * kTile * (kTile + 1) + 2 * kTile) *
-      sizeof(float);
+int launch_typed(const Args<T>& args, const Launch* l, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dq_smem));
+      l[0].smem);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(dkv_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dkv_smem));
+                               l[1].smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<T, D><<<dim3(tiles, b * args.h), kThreads, dq_smem, stream>>>(
-      args);
+  dq_kernel<T, D><<<l[0].grid, l[0].block, l[0].smem, stream>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_kernel<T, D><<<dim3(tiles, b * args.kh), kThreads, dkv_smem,
-                      stream>>>(args);
+  dkv_kernel<T, D><<<l[1].grid, l[1].block, l[1].smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1124,24 +1146,53 @@ void fill(A& a, const void* q, const void* k, const void* v, const void* o,
 }
 
 template <int D>
-int run(const tc::Args& a, int b, cudaStream_t s) {
-  return tc::launch<D>(a, b, s);
+int run(const tc::Args& a, const Launch* l, cudaStream_t s) {
+  return tc::launch<D>(a, l, s);
 }
 
 template <int D>
-int run(const f32::Args<float>& a, int b, cudaStream_t s) {
-  return f32::launch_typed<float, D>(a, b, s);
+int run(const f32::Args<float>& a, const Launch* l, cudaStream_t s) {
+  return f32::launch_typed<float, D>(a, l, s);
 }
 
 template <typename A>
-int by_dim(int d, const A& a, int b, cudaStream_t s) {
+int by_dim(int d, const A& a, const Launch* l, cudaStream_t s) {
   switch (d) {
-    case 16: return run<16>(a, b, s);
-    case 32: return run<32>(a, b, s);
-    case 64: return run<64>(a, b, s);
-    case 128: return run<128>(a, b, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return run<16>(a, l, s);
+    case 32: return run<32>(a, l, s);
+    case 64: return run<64>(a, l, s);
+    default: return run<128>(a, l, s);
   }
+}
+
+// Entries: tc::dq_kernel<16, 32, 64, 128> (0-3), tc::dkv_kernel (4-7),
+// f32::dq_kernel<float, D> (8-11), f32::dkv_kernel<float, D> (12-15). Two
+// launches, dq then dkv, over the kTile-position tiles of S: on the tensor
+// cores a block per (query or kv head, row, tile), on the CUDA cores per
+// (tile, row x head); each launch's whole shared memory opted in. -1 where
+// the launch refuses the shape.
+int make_plan(int b, int h, int kh, int s_len, int d, int dtype,
+              Launch* out) {
+  const int slot = d == 16 ? 0 : d == 32 ? 1 : d == 64 ? 2 : d == 128 ? 3
+                                                                       : -1;
+  if (b <= 0 || h <= 0 || kh <= 0 || h % kh || s_len <= 0 || slot < 0 ||
+      (dtype != 0 && dtype != 1)) {
+    return -1;
+  }
+  const int tiles = n_tiles(s_len);
+  if (dtype == 1) {
+    const int dq = 6 * kTile * d * 2 + kTile * 4;
+    const int dkv = 10 * kTile * d * 2 + 8 * kTile * 4;
+    out[0] = {slot, dim3(h, b, tiles), dim3(tc::kThreads), dq, 1, 1};
+    out[1] = {4 + slot, dim3(kh, b, tiles), dim3(tc::kDkvThreads), dkv, 1,
+              1};
+  } else {
+    out[0] = {8 + slot, dim3(tiles, b * h), dim3(f32::kThreads),
+              f32::smem_bytes(d, false), 1, 1};
+    out[1] = {12 + slot, dim3(tiles, b * kh), dim3(f32::kThreads),
+              f32::smem_bytes(d, true), 1, 1};
+  }
+  return 2;
 }
 
 }  // namespace
@@ -1160,7 +1211,8 @@ extern "C" int flash_attention_bwd_launch(
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
     const int64_t* strides, int b, int h, int kh, int s_len, int d,
     float scale, int causal, int dtype, void* stream) {
-  if (b <= 0 || h <= 0 || kh <= 0 || h % kh || s_len <= 0) {
+  Launch l[2];
+  if (make_plan(b, h, kh, s_len, d, dtype, l) != 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // A dimension of size 1 never uses its stride: 0 keeps it out of the
@@ -1180,10 +1232,10 @@ extern "C" int flash_attention_bwd_launch(
     f32::Args<float> a;
     fill<float>(a, q, k, v, o, dout, dq, dk, dv, lse, delta, st, h, kh,
                 s_len, scale, causal);
-    return by_dim(d, a, b, s);
+    return by_dim(d, a, l, s);
   }
   const void* ptrs[] = {q, k, v, o, dout, dq, dk, dv};
-  if (dtype != 1 || !tc::aligned(ptrs, 8, st)) {
+  if (!tc::aligned(ptrs, 8, st)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   tc::Args a;
@@ -1191,5 +1243,15 @@ extern "C" int flash_attention_bwd_launch(
                  s_len, scale, causal);
   a.s_pad = n_tiles(s_len) * kTile;
   a.scale_log2 = scale * 1.4426950408889634f;
-  return by_dim(d, a, b, s);
+  return by_dim(d, a, l, s);
+}
+
+// The plan of flash_attention_bwd_launch at these sizes (see make_plan):
+// writes each launch's kPlanFields ints to `plan` and returns their number
+// (-1 where the launch refuses the shape).
+extern "C" int flash_attention_bwd_plan(int b, int h, int kh, int s_len,
+                                        int d, int dtype, int* plan) {
+  Launch l[2];
+  const int n = make_plan(b, h, kh, s_len, d, dtype, l);
+  return n < 0 ? n : write_plan(l, n, plan);
 }

@@ -48,6 +48,32 @@
 
 namespace {
 
+// One launch of a plan: the kernel entry (an index into ENTRIES in
+// kernels/rmsnorm/ops.py), grid, block, dynamic shared memory bytes,
+// whether the launch path raises the 48 KB cap on it, and the blocks of a
+// cluster along x. The launch path takes its geometry from the plan, and
+// rmsnorm_plan writes each launch as kPlanFields ints for the launch audit
+// (repro_torch/analysis/launch_audit.py), which holds it against
+// launch_plan in ops.py.
+struct Launch {
+  int entry;
+  dim3 grid, block;
+  int smem, optin, cluster;
+};
+constexpr int kPlanFields = 10;
+
+int write_plan(const Launch* l, int n, int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int row[kPlanFields] = {
+        l[i].entry, static_cast<int>(l[i].grid.x),
+        static_cast<int>(l[i].grid.y), static_cast<int>(l[i].grid.z),
+        static_cast<int>(l[i].block.x), static_cast<int>(l[i].block.y),
+        static_cast<int>(l[i].block.z), l[i].smem, l[i].optin, l[i].cluster};
+    for (int j = 0; j < kPlanFields; ++j) out[i * kPlanFields + j] = row[j];
+  }
+  return n;
+}
+
 // One tensor's rows: x, out [rows, d] and g [d], contiguous.
 template <typename T>
 struct Rows {
@@ -304,51 +330,88 @@ bool aligned16(const Rows<T>& r) {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Launch `kernel` over both tensors, `per_block` rows to a block.
-template <typename T, typename K>
-void launch_pair(K kernel, Pair<T> p, int per_block, int threads, int d,
-                 float eps, cudaStream_t stream) {
-  p.blocks_a = cdiv(p.a.rows, per_block);
-  const int blocks = p.blocks_a + cdiv(p.b.rows, per_block);
-  kernel<<<blocks, threads, 0, stream>>>(p, d, eps);
+// Entries, for float (0-19) then __nv_bfloat16 (20-39):
+// rmsnorm_vec_rows_kernel<T, LANES, V> for LANES 4, 8, 16, 32 and V 1-4
+// (4 * LANES slot + V - 1), rmsnorm_vec_block_kernel<T> (16),
+// rmsnorm_rows_kernel<T> (17), rmsnorm_kernel<T, 128> (18) and <T, 256>
+// (19).
+enum Entry { kVecBlock = 16, kRows = 17, kBlock128 = 18, kBlock256 = 19,
+             kEntries = 20 };
+
+// Rows a block of entry `e` (of one type) takes.
+int rows_per_block(int e) {
+  if (e < kVecBlock) return kVecThreads / (4 << (e / 4));
+  return e == kRows ? kRowsPerBlock : 1;
+}
+
+// One launch over both tensors, a's blocks first: 16-byte vectors where
+// D allows and every address is aligned, LANES lanes a row (a block per
+// row past 128 vectors), else a warp a row up to D = 512 and a block a
+// row above. No launch for no rows.
+int make_plan(int t_a, int t_b, int d, int dtype, int aligned, Launch* out) {
+  if (t_a < 0 || t_b < 0 || t_a + t_b == 0 || d <= 0) return 0;
+  const int type = dtype == 0 ? 0 : 1;
+  const int elems = type == 0 ? Vec<float>::kElems
+                              : Vec<__nv_bfloat16>::kElems;
+  const int nvec = d / elems;
+  const bool vec = d % elems == 0 && nvec <= 32 * kBlockVecs * 32 && aligned;
+  int e, threads;
+  if (vec && nvec <= 32 * kBlockVecs) {
+    const int slot = nvec <= 4 ? 0 : nvec <= 8 ? 1 : nvec <= 16 ? 2 : 3;
+    const int v = cdiv(nvec, 4 << slot);
+    e = 4 * slot + (v < 4 ? v : 4) - 1;
+    threads = kVecThreads;
+  } else if (vec) {
+    e = kVecBlock;
+    threads = 32 * cdiv(nvec, 32 * kBlockVecs);
+  } else if (d <= 512) {
+    e = kRows;
+    threads = 32 * kRowsPerBlock;
+  } else {
+    e = d <= 1024 ? kBlock128 : kBlock256;
+    threads = d <= 1024 ? 128 : 256;
+  }
+  const int per = rows_per_block(e);
+  out[0] = {kEntries * type + e, dim3(cdiv(t_a, per) + cdiv(t_b, per)),
+            dim3(threads), 0, 0, 1};
+  return 1;
 }
 
 template <typename T, int LANES>
-void launch_rows(Pair<T> p, int nvec, int d, float eps, cudaStream_t s) {
-  const int per_block = kVecThreads / LANES;
-  switch (cdiv(nvec, LANES)) {
-    case 1: launch_pair(rmsnorm_vec_rows_kernel<T, LANES, 1>, p, per_block,
-                        kVecThreads, d, eps, s); break;
-    case 2: launch_pair(rmsnorm_vec_rows_kernel<T, LANES, 2>, p, per_block,
-                        kVecThreads, d, eps, s); break;
-    case 3: launch_pair(rmsnorm_vec_rows_kernel<T, LANES, 3>, p, per_block,
-                        kVecThreads, d, eps, s); break;
-    default: launch_pair(rmsnorm_vec_rows_kernel<T, LANES, 4>, p, per_block,
-                         kVecThreads, d, eps, s); break;
+void launch_rows(const Launch& l, const Pair<T>& p, int v, int d, float eps,
+                 cudaStream_t s) {
+  switch (v) {
+    case 1: rmsnorm_vec_rows_kernel<T, LANES, 1><<<l.grid, l.block, 0, s>>>(p, d, eps); break;
+    case 2: rmsnorm_vec_rows_kernel<T, LANES, 2><<<l.grid, l.block, 0, s>>>(p, d, eps); break;
+    case 3: rmsnorm_vec_rows_kernel<T, LANES, 3><<<l.grid, l.block, 0, s>>>(p, d, eps); break;
+    default: rmsnorm_vec_rows_kernel<T, LANES, 4><<<l.grid, l.block, 0, s>>>(p, d, eps); break;
   }
 }
 
 template <typename T>
-int launch(Pair<T> p, int d, float eps, cudaStream_t s) {
-  constexpr int E = Vec<T>::kElems;
-  const int nvec = d / E;
-  const bool vec = d % E == 0 && nvec <= 32 * kBlockVecs * 32 &&
-                   aligned16(p.a) && aligned16(p.b);
-  if (vec && nvec <= 32 * kBlockVecs) {
-    if (nvec <= 4) launch_rows<T, 4>(p, nvec, d, eps, s);
-    else if (nvec <= 8) launch_rows<T, 8>(p, nvec, d, eps, s);
-    else if (nvec <= 16) launch_rows<T, 16>(p, nvec, d, eps, s);
-    else launch_rows<T, 32>(p, nvec, d, eps, s);
-  } else if (vec) {
-    launch_pair(rmsnorm_vec_block_kernel<T>, p, 1,
-                32 * cdiv(nvec, 32 * kBlockVecs), d, eps, s);
-  } else if (d <= 512) {
-    launch_pair(rmsnorm_rows_kernel<T>, p, kRowsPerBlock, 32 * kRowsPerBlock,
-                d, eps, s);
-  } else if (d <= 1024) {
-    launch_pair(rmsnorm_kernel<T, 128>, p, 1, 128, d, eps, s);
+int launch(Pair<T> p, int d, float eps, int dtype, cudaStream_t s) {
+  Launch l[1];
+  if (make_plan(p.a.rows, p.b.rows, d, dtype, aligned16(p.a) && aligned16(p.b),
+                l) != 1) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int e = l[0].entry % kEntries;
+  p.blocks_a = cdiv(p.a.rows, rows_per_block(e));
+  if (e < kVecBlock) {
+    switch (e / 4) {
+      case 0: launch_rows<T, 4>(l[0], p, e % 4 + 1, d, eps, s); break;
+      case 1: launch_rows<T, 8>(l[0], p, e % 4 + 1, d, eps, s); break;
+      case 2: launch_rows<T, 16>(l[0], p, e % 4 + 1, d, eps, s); break;
+      default: launch_rows<T, 32>(l[0], p, e % 4 + 1, d, eps, s); break;
+    }
+  } else if (e == kVecBlock) {
+    rmsnorm_vec_block_kernel<T><<<l[0].grid, l[0].block, 0, s>>>(p, d, eps);
+  } else if (e == kRows) {
+    rmsnorm_rows_kernel<T><<<l[0].grid, l[0].block, 0, s>>>(p, d, eps);
+  } else if (e == kBlock128) {
+    rmsnorm_kernel<T, 128><<<l[0].grid, l[0].block, 0, s>>>(p, d, eps);
   } else {
-    launch_pair(rmsnorm_kernel<T, 256>, p, 1, 256, d, eps, s);
+    rmsnorm_kernel<T, 256><<<l[0].grid, l[0].block, 0, s>>>(p, d, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -362,7 +425,7 @@ int launch_typed(const void* xa, const void* ga, void* outa, int ta,
             {static_cast<const T*>(xb), static_cast<const T*>(gb),
              static_cast<T*>(outb), tb},
             0};
-  return launch<T>(p, d, eps, s);
+  return launch<T>(p, d, eps, sizeof(T) == 4 ? 0 : 1, s);
 }
 
 }  // namespace
@@ -385,6 +448,15 @@ extern "C" int rmsnorm_pair_launch(const void* x_a, const void* g_a,
   }
   return launch_typed<__nv_bfloat16>(x_a, g_a, out_a, t_a, x_b, g_b, out_b,
                                      t_b, d, eps, s);
+}
+
+// The plan of rmsnorm_pair_launch at these sizes (`aligned`: every
+// address 16-byte aligned; see make_plan): writes each launch's
+// kPlanFields ints to `plan` and returns their number.
+extern "C" int rmsnorm_plan(int t_a, int t_b, int d, int dtype, int aligned,
+                            int* plan) {
+  Launch l[1];
+  return write_plan(l, make_plan(t_a, t_b, d, dtype, aligned, l), plan);
 }
 
 // One tensor: x, out [t, d] and g [d].

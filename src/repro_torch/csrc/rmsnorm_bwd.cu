@@ -80,6 +80,32 @@
 
 namespace {
 
+// One launch of a plan: the kernel entry (an index into ENTRIES in
+// kernels/rmsnorm_bwd/ops.py), grid, block, dynamic shared memory bytes,
+// whether the launch path raises the 48 KB cap on it, and the blocks of a
+// cluster along x. The launch path takes its geometry from the plan, and
+// rmsnorm_bwd_plan writes each launch as kPlanFields ints for the launch audit
+// (repro_torch/analysis/launch_audit.py), which holds it against
+// launch_plan in ops.py.
+struct Launch {
+  int entry;
+  dim3 grid, block;
+  int smem, optin, cluster;
+};
+constexpr int kPlanFields = 10;
+
+int write_plan(const Launch* l, int n, int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int row[kPlanFields] = {
+        l[i].entry, static_cast<int>(l[i].grid.x),
+        static_cast<int>(l[i].grid.y), static_cast<int>(l[i].grid.z),
+        static_cast<int>(l[i].block.x), static_cast<int>(l[i].block.y),
+        static_cast<int>(l[i].block.z), l[i].smem, l[i].optin, l[i].cluster};
+    for (int j = 0; j < kPlanFields; ++j) out[i * kPlanFields + j] = row[j];
+  }
+  return n;
+}
+
 // One tensor's rows and its share of the partial.
 template <typename T>
 struct Rows {
@@ -421,63 +447,87 @@ bool lanes_fold(int lanes) {
   return lanes <= 32 ? (32 % lanes) == 0 : lanes % 32 == 0;
 }
 
+// Entries: rmsnorm_bwd_vec_kernel<float, V> for V 1-4 (0-3),
+// rmsnorm_bwd_scalar_kernel<float> (4), the same for __nv_bfloat16 (5-9),
+// rmsnorm_bwd_reduce (10).
+constexpr int kTypeEntries = 5, kReduceEntry = 10;
+
+// Up to two launches: the rows (a's blocks, then b's; none where both are
+// empty) by the caller's layout, threads a row and rows a block, with the
+// [slots][d] float fold in dynamic shared memory (opted in past 48 KB),
+// then the gains' reduction, a block of kRedCols columns by kRedLanes
+// lanes per (column tile, gain). -1 where the launch refuses the plan: a
+// vector layout at a misaligned address or a D it cannot hold, threads a
+// row fold2 cannot take, or no rows a block.
+int make_plan(int t_a, int t_b, int d, int dtype, int layout, int lanes,
+              int per_a, int per_b, int aligned, int two, Launch* out) {
+  const int type = dtype == 0 ? 0 : 1;
+  const int elems = type == 0 ? Vec<float>::kElems
+                              : Vec<__nv_bfloat16>::kElems;
+  const int nvec = d / elems;
+  const bool vec = layout != kScalarLayout;
+  if (d <= 0 || t_a < 0 || t_b < 0 || (dtype != 0 && dtype != 1) ||
+      layout < kRowsLayout || layout > kScalarLayout || !lanes_fold(lanes) ||
+      (t_a > 0 && per_a < 1) || (t_b > 0 && per_b < 1) ||
+      (vec && (d % elems != 0 || !aligned || cdiv(nvec, lanes) > kMaxVec))) {
+    return -1;
+  }
+  const int blocks = (t_a > 0 ? cdiv(t_a, per_a) : 0) +
+                     (t_b > 0 ? cdiv(t_b, per_b) : 0);
+  const int slots = lanes >= kRowThreads ? 1 : kRowThreads / lanes;
+  const int smem = slots > 1 || layout == kScalarLayout
+                       ? slots * d * static_cast<int>(sizeof(float))
+                       : 0;
+  int n = 0;
+  if (blocks > 0) {
+    const int e = vec ? cdiv(nvec, lanes) - 1 : kTypeEntries - 1;
+    out[n++] = {kTypeEntries * type + e, dim3(blocks), dim3(lanes * slots),
+                smem, smem > 48 * 1024 ? 1 : 0, 1};
+  }
+  out[n++] = {kReduceEntry, dim3(cdiv(d, kRedCols), two ? 2 : 1),
+              dim3(kRedCols, kRedLanes), 0, 0, 1};
+  return n;
+}
+
 template <typename T, typename K>
-cudaError_t launch_rows(K kernel, const Pair<T>& p, int threads, int d,
-                        int lanes, float eps, size_t smem,
-                        cudaStream_t stream) {
-  if (smem > 48 * 1024) {
+cudaError_t launch_rows(K kernel, const Pair<T>& p, const Launch& l, int d,
+                        int lanes, float eps, cudaStream_t stream) {
+  if (l.optin) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<p.a.blocks + p.b.blocks, threads, smem, stream>>>(p, d, lanes,
-                                                             eps);
+  kernel<<<l.grid, l.block, l.smem, stream>>>(p, d, lanes, eps);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(Pair<T> p, int d, float eps, int layout, int lanes, float* dg_a,
            float* dg_b, float* partial, cudaStream_t stream) {
-  constexpr int E = Vec<T>::kElems;
-  const int nvec = d / E;
-  const bool vec = layout != kScalarLayout;
-  if (layout < kRowsLayout || layout > kScalarLayout || !lanes_fold(lanes) ||
-      (p.a.rows > 0 && p.a.per < 1) || (p.b.rows > 0 && p.b.per < 1) ||
-      (vec && (d % E != 0 || !aligned16(p.a) || !aligned16(p.b) ||
-               cdiv(nvec, lanes) > kMaxVec))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  Launch l[2];
+  const int n = make_plan(p.a.rows, p.b.rows, d, sizeof(T) == 4 ? 0 : 1,
+                          layout, lanes, p.a.per, p.b.per,
+                          aligned16(p.a) && aligned16(p.b), dg_b != nullptr,
+                          l);
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   p.a.blocks = p.a.rows > 0 ? cdiv(p.a.rows, p.a.per) : 0;
   p.b.blocks = p.b.rows > 0 ? cdiv(p.b.rows, p.b.per) : 0;
   p.a.partial = partial;
   p.b.partial = partial + static_cast<int64_t>(p.a.blocks) * d;
-  const int slots = lanes >= kRowThreads ? 1 : kRowThreads / lanes;
-  const int threads = lanes * slots;
-  const size_t fold = slots > 1 || layout == kScalarLayout
-                          ? static_cast<size_t>(slots) * d * sizeof(float)
-                          : 0;
-  cudaError_t err = cudaSuccess;
-  if (p.a.blocks + p.b.blocks > 0) {
-    if (layout == kScalarLayout) {
-      err = launch_rows(rmsnorm_bwd_scalar_kernel<T>, p, threads, d, lanes,
-                        eps, fold, stream);
-    } else {
-      switch (cdiv(nvec, lanes)) {
-        case 1: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 1>, p, threads, d,
-                                  lanes, eps, fold, stream); break;
-        case 2: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 2>, p, threads, d,
-                                  lanes, eps, fold, stream); break;
-        case 3: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 3>, p, threads, d,
-                                  lanes, eps, fold, stream); break;
-        default: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 4>, p, threads,
-                                   d, lanes, eps, fold, stream); break;
-      }
+  if (n == 2) {
+    const int e = l[0].entry % kTypeEntries;
+    cudaError_t err;
+    switch (e) {
+      case 0: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 1>, p, l[0], d, lanes, eps, stream); break;
+      case 1: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 2>, p, l[0], d, lanes, eps, stream); break;
+      case 2: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 3>, p, l[0], d, lanes, eps, stream); break;
+      case 3: err = launch_rows(rmsnorm_bwd_vec_kernel<T, 4>, p, l[0], d, lanes, eps, stream); break;
+      default: err = launch_rows(rmsnorm_bwd_scalar_kernel<T>, p, l[0], d, lanes, eps, stream); break;
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(cdiv(d, kRedCols), dg_b != nullptr ? 2 : 1);
-  rmsnorm_bwd_reduce<<<grid, dim3(kRedCols, kRedLanes), 0, stream>>>(
+  const Launch& r = l[n - 1];
+  rmsnorm_bwd_reduce<<<r.grid, r.block, 0, stream>>>(
       partial, dg_a, p.a.blocks, dg_b, p.b.blocks, d);
   return static_cast<int>(cudaGetLastError());
 }
@@ -534,4 +584,17 @@ extern "C" int rmsnorm_pair_bwd_launch(
     return launch<bf>(p, d, eps, layout, lanes, dga, dgb, part, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan of rmsnorm_pair_bwd_launch at these arguments (`aligned`: every
+// address 16-byte aligned; `two`: a second gain; see make_plan): writes
+// each launch's kPlanFields ints to `plan` and returns their number (-1
+// where the launch refuses them).
+extern "C" int rmsnorm_bwd_plan(int t_a, int t_b, int d, int dtype,
+                                int layout, int lanes, int per_a, int per_b,
+                                int aligned, int two, int* plan) {
+  Launch l[2];
+  const int n = make_plan(t_a, t_b, d, dtype, layout, lanes, per_a, per_b,
+                          aligned, two, l);
+  return n < 0 ? n : write_plan(l, n, plan);
 }

@@ -189,10 +189,52 @@ __global__ void __launch_bounds__(32 * kTileWarps) score_tile_kernel(Args a) {
   }
 }
 
-template <int K>
-void launch_tile(const Args& a, cudaStream_t stream) {
-  const int blocks = (a.n + K - 1) / K;
-  score_tile_kernel<K><<<blocks, 32 * kTileWarps, 0, stream>>>(a);
+// The kernel entries, in the order of ENTRIES in ops.py.
+enum Entry { kWarpEntry = 0, kTile8, kTile4, kTile2, kTile1 };
+
+// One launch of a plan: the kernel entry (an index into ENTRIES in
+// kernels/stability_score/ops.py), grid, block, dynamic shared memory bytes,
+// whether the launch path raises the 48 KB cap on it, and the blocks of a
+// cluster along x. The launch path takes its geometry from the plan, and
+// stability_score_plan writes each launch as kPlanFields ints for the launch audit
+// (repro_torch/analysis/launch_audit.py), which holds it against
+// launch_plan in ops.py.
+struct Launch {
+  int entry;
+  dim3 grid, block;
+  int smem, optin, cluster;
+};
+constexpr int kPlanFields = 10;
+
+int write_plan(const Launch* l, int n, int* out) {
+  for (int i = 0; i < n; ++i) {
+    const int row[kPlanFields] = {
+        l[i].entry, static_cast<int>(l[i].grid.x),
+        static_cast<int>(l[i].grid.y), static_cast<int>(l[i].grid.z),
+        static_cast<int>(l[i].block.x), static_cast<int>(l[i].block.y),
+        static_cast<int>(l[i].block.z), l[i].smem, l[i].optin, l[i].cluster};
+    for (int j = 0; j < kPlanFields; ++j) out[i * kPlanFields + j] = row[j];
+  }
+  return n;
+}
+
+// One launch: a warp per candidate over few tasks, else K candidates per
+// block of kTileWarps warps, K halved until there are kMinTileBlocks
+// blocks (or K is 1). No launch for no candidates or no tasks.
+int make_plan(int n, int m, int q, Launch* out) {
+  if (n <= 0 || m * q <= 0) return 0;
+  if (m * q <= kWarpTasks) {
+    const int blocks = (n + kWarpBlockWarps - 1) / kWarpBlockWarps;
+    const int warps = blocks == 1 ? n : kWarpBlockWarps;
+    out[0] = {kWarpEntry, dim3(blocks), dim3(32 * warps), 0, 0, 1};
+    return 1;
+  }
+  int k = kMaxK;
+  while (k > 1 && (n + k - 1) / k < kMinTileBlocks) k >>= 1;
+  const int entry = k == 8 ? kTile8 : k == 4 ? kTile4 : k == 2 ? kTile2
+                                                              : kTile1;
+  out[0] = {entry, dim3((n + k - 1) / k), dim3(32 * kTileWarps), 0, 0, 1};
+  return 1;
 }
 
 }  // namespace
@@ -205,24 +247,25 @@ extern "C" int stability_score_launch(
     const float* cand_latency, const int32_t* cand_batch,
     const int32_t* cand_queue, int n, int m, int q, float clip, float* out,
     void* stream) {
-  if (n > 0 && m * q > 0) {
+  Launch l[1];
+  if (make_plan(n, m, q, l) == 1) {
     const Args a{w, mask, tau, tau_scalar, cand_latency, cand_batch,
                  cand_queue, n, m, q, clip, logf(clip), out};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (m * q <= kWarpTasks) {
-      const int blocks = (n + kWarpBlockWarps - 1) / kWarpBlockWarps;
-      const int warps = blocks == 1 ? n : kWarpBlockWarps;
-      score_warp_kernel<<<blocks, 32 * warps, 0, s>>>(a);
-    } else {
-      int k = kMaxK;
-      while (k > 1 && (n + k - 1) / k < kMinTileBlocks) k >>= 1;
-      switch (k) {
-        case 8: launch_tile<8>(a, s); break;
-        case 4: launch_tile<4>(a, s); break;
-        case 2: launch_tile<2>(a, s); break;
-        default: launch_tile<1>(a, s); break;
-      }
+    switch (l[0].entry) {
+      case kWarpEntry: score_warp_kernel<<<l[0].grid, l[0].block, 0, s>>>(a); break;
+      case kTile8: score_tile_kernel<8><<<l[0].grid, l[0].block, 0, s>>>(a); break;
+      case kTile4: score_tile_kernel<4><<<l[0].grid, l[0].block, 0, s>>>(a); break;
+      case kTile2: score_tile_kernel<2><<<l[0].grid, l[0].block, 0, s>>>(a); break;
+      default: score_tile_kernel<1><<<l[0].grid, l[0].block, 0, s>>>(a); break;
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan of stability_score_launch at these sizes: writes each launch's
+// kPlanFields ints to `plan` and returns the number of launches.
+extern "C" int stability_score_plan(int n, int m, int q, int* plan) {
+  Launch l[1];
+  return write_plan(l, make_plan(n, m, q, l), plan);
 }

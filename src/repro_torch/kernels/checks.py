@@ -2,8 +2,11 @@
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Sequence
+import dataclasses
+import functools
+from typing import Dict, Iterator, Optional, Sequence, Set, Tuple
 
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
@@ -12,6 +15,104 @@ from repro_torch.kernels import build
 
 # The dtype code every csrc launcher takes.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# A csrc ``<kernel>_plan`` writes each launch as PLAN_FIELDS ints: entry,
+# grid x y z, block x y z, dynamic shared memory bytes, opt-in, cluster.
+PLAN_FIELDS = 10
+MAX_LAUNCHES = 4
+
+# kernel -> the distinct plan arguments it was launched with while a
+# ``recording()`` is open (``launching``): the launch audit's envelope of
+# what ran. None: nothing is recorded, as in a serving process.
+_recorded: Optional[Dict[str, Set[Tuple[Tuple[str, int], ...]]]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel launch of a plan, as ``csrc/<kernel>.cu``'s
+    ``<kernel>_plan`` computes it and ``kernels/<kernel>/ops.py``'s
+    ``launch_plan`` mirrors it: the entry (a name of the ops module's
+    ``ENTRIES``), grid and block, the dynamic shared memory bytes, whether
+    the launch path opts in past 48 KB of it, and the blocks of a cluster
+    along x. For the audit (``repro_torch/analysis/launch_audit.py``) the
+    plan adds what the kernel tiles: ``tiles`` holds ``(axis, tile,
+    extent, strided)``, blocks on grid ``axis`` each taking ``tile`` of
+    ``extent`` elements (several on one axis share it, in order; a
+    ``strided`` axis is walked grid-stride, so it needs at least one block
+    and none past its tiles), and ``index32`` ``(tensor, elements)`` for
+    the tensors the kernel addresses with 32-bit offsets."""
+
+    entry: str
+    grid: Tuple[int, int, int]
+    block: Tuple[int, int, int]
+    smem: int = 0
+    optin: bool = False
+    cluster: int = 1
+    tiles: Tuple[Tuple[int, int, int, bool], ...] = ()
+    index32: Tuple[Tuple[str, int], ...] = ()
+
+    def row(self, entries: Sequence[str]) -> Tuple[int, ...]:
+        """The C plan's ints for this launch."""
+        return ((entries.index(self.entry),) + tuple(self.grid)
+                + tuple(self.block) + (self.smem, int(self.optin),
+                                       self.cluster))
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def c_plan(kernel: str, argtypes: Sequence, *args) -> Tuple[tuple, ...]:
+    """The launches ``csrc/<kernel>.cu``'s ``<kernel>_plan`` gives for
+    ``args`` (its C arguments), each as its PLAN_FIELDS ints; raises where
+    the launch path refuses them."""
+    fn = launcher(kernel, f"{kernel}_plan",
+                  list(argtypes) + [ctypes.c_void_p])
+    buf = (ctypes.c_int * (PLAN_FIELDS * MAX_LAUNCHES))()
+    n = fn(*args, buf)
+    if n < 0:
+        raise ValueError(f"{kernel}_plan refuses {args}")
+    return tuple(tuple(buf[i * PLAN_FIELDS:(i + 1) * PLAN_FIELDS])
+                 for i in range(n))
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Dict[str, Set[Tuple[Tuple[str, int], ...]]]]:
+    """Record, until the block ends, the plan arguments every kernel is
+    launched with: kernel -> the set of ``tuple(plan_args.items())``."""
+    global _recorded
+    outer, _recorded = _recorded, {}
+    try:
+        yield _recorded
+    finally:
+        _recorded = outer
+
+
+def launching(kernel: str, point: Tuple[Tuple[str, int], ...] = (),
+              **plan_args: int) -> None:
+    """Note that ``kernel`` launches now with ``plan_args`` (its ops
+    module's ``launch_plan`` arguments; ``point``: the card-dependent
+    ones, where its plan has any, as ``(name, value)`` pairs), recorded
+    where a :func:`recording` is open, and raise ``ValueError`` before the
+    launch where that plan on this card breaks a launch limit (the launch
+    audit's rules LCH001-LCH003, checked once for each distinct set of
+    arguments)."""
+    key = tuple(plan_args.items())
+    if _recorded is not None:
+        _recorded.setdefault(kernel, set()).add(key)
+    _within_limits(kernel, key, point)
+
+
+@functools.lru_cache(maxsize=4096)
+def _within_limits(kernel: str, key: Tuple[Tuple[str, int], ...],
+                   point: Tuple[Tuple[str, int], ...]) -> None:
+    from repro_torch.analysis import launch_audit
+
+    found = launch_audit.launch_findings(kernel, dict(key), dict(point))
+    if found:
+        raise ValueError(f"{kernel} cannot launch at {dict(key + point)}: "
+                         + "; ".join(f"{f.rule} {f.message}"
+                                     for f in found))
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -81,6 +182,36 @@ def run_plain(kernel: str, fn, *args, **kwargs):
         if hook is not None:
             return hook(kernel, fn, args, kwargs)
     return fn(*args, **kwargs)
+
+
+def partitioned(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a piece of plain torch that no kernel
+    takes, through the ``run_partitioned`` method of the innermost active
+    dispatch mode that has one: a cost count over ``DTensor``s runs it
+    partitioned as XLA's partitioner would (``launch/graph_analysis.py``),
+    where ``DTensor``'s own choices vary between torch versions."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        hook = getattr(mode, "run_partitioned", None)
+        if hook is not None:
+            return hook(name, fn, args, kwargs)
+    return fn(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def time_loop(steps: int) -> Iterator[int]:
+    """The trips an eager time loop of ``steps`` steps runs: all of them,
+    except under a cost count (a dispatch mode with a ``trips`` method,
+    ``repro_torch.launch.graph_analysis.CostCounter``), which runs one trip
+    and bills it ``steps`` times, as XLA's cost analysis weights a scan's
+    body by its known trip count. Every trip of such a loop dispatches the
+    same ops at the same shapes, so the one trip bills what all would."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        trips = getattr(mode, "trips", None)
+        if trips is not None:
+            with trips(steps):
+                yield 1
+            return
+    yield steps
 
 
 def require_cuda(t: torch.Tensor, kernel: str) -> None:

@@ -31,6 +31,56 @@ TARGET_BLOCKS = 132
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
+# The launch plan (``decode_attention_plan`` in the source): entries by head
+# dim, tc:: (bfloat16 on the tensor cores) then f32::, and the kernels'
+# shapes: threads, query heads a block, and the shared memory they take.
+ENTRIES = tuple(f"{ns}::decode_attention_kernel<{d}>"
+                for ns in ("tc", "f32") for d in HEAD_DIMS)
+PLAN_ARGTYPES = [ctypes.c_int] * 8
+TC_THREADS, TC_HEADS, F32_THREADS, F32_HEADS = 256, 8, 128, 4
+
+
+def _smem(d: int, dtype: int) -> int:
+    """The kernel's dynamic shared memory at head dim ``d`` (``Shape<D>``
+    in the source): the K/V ring (tensor cores: 8 warps' rings of 16-row
+    slices, 2-8 stages in about 104 KB; CUDA cores: 32-row stages, up to 8
+    in about 96 KB), then the block's scratch."""
+    if dtype == 1:
+        slice_elems = 16 * d
+        stages = min(max(104 * 1024 // (8 * 2 * slice_elems * 2), 2), 8)
+        ring = 8 * stages * 2 * slice_elems
+        return ((ring + 8 * TC_HEADS * 24) * 2
+                + (TC_HEADS * d + 2 * TC_HEADS + 2 * MAX_CLUSTER * TC_HEADS)
+                * 4)
+    stage = 2 * TILE * d
+    ring = min(96 * 1024 // (stage * 4), 8) * stage
+    return (ring + F32_HEADS * d + F32_HEADS * TILE + 3 * F32_HEADS
+            + 2 * MAX_CLUSTER * F32_HEADS) * 4
+
+
+def launch_plan(b: int, h: int, kh: int, s: int, d: int, dtype: int):
+    """The one launch of :func:`split`'s plan: a block per (chunk, kv head
+    x head group, row), a (row, kv head, head group)'s chunks one cluster,
+    the kernel's whole shared memory opted in."""
+    if b <= 0 or h <= 0:
+        return ()
+    chunk, n = split(b, kh, s)
+    heads = TC_HEADS if dtype == 1 else F32_HEADS
+    groups = kh * checks.cdiv(h // kh, heads)
+    return (checks.Launch(
+        ENTRIES[(0 if dtype == 1 else 4) + HEAD_DIMS.index(d)],
+        (n, groups, b), (TC_THREADS if dtype == 1 else F32_THREADS, 1, 1),
+        smem=_smem(d, dtype), optin=True, cluster=n,
+        tiles=((0, chunk, s, False), (1, 1, groups, False),
+               (2, 1, b, False)),
+        index32=(("lengths", b),)),)
+
+
+def plan_c_args(b: int, h: int, kh: int, s: int, d: int, dtype: int):
+    """``decode_attention_plan``'s arguments for :func:`launch_plan`'s."""
+    chunk, n = split(b, kh, s)
+    return (b, h, kh, s, d, chunk, n, dtype)
+
 
 def split(b: int, kh: int, s: int):
     """The launch plan, (chunk, number of chunks): one launch whose grid
@@ -95,6 +145,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 8)(q.stride(0), q.stride(1), *k.stride()[:3],
                                    *v.stride()[:3])
+    checks.launching(KERNEL, b=b, h=h, kh=kh, s=s, d=d, dtype=code)
     fn = checks.launcher(KERNEL, "decode_attention_launch", _ARGTYPES)
     checks.run(KERNEL, fn, q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), lengths.data_ptr(), out.data_ptr(),

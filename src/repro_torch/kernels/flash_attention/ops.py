@@ -39,6 +39,88 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
 _BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
+# The launch plans (``flash_attention_plan`` and ``flash_attention_bwd_plan``
+# in the sources): entries by head dim, tc:: (bfloat16 on the tensor cores)
+# then f32:: (float32 on the CUDA cores). Both plans take (B, H, K, S, D,
+# dtype code).
+ENTRIES = tuple(f"{ns}::flash_attention_kernel<{d}>" for ns in ("tc", "f32")
+                for d in HEAD_DIMS)
+BWD_ENTRIES = tuple(f"tc::{k}<{d}>" for k in ("dq_kernel", "dkv_kernel")
+                    for d in HEAD_DIMS) + tuple(
+    f"f32::{k}<float, {d}>" for k in ("dq_kernel", "dkv_kernel")
+    for d in HEAD_DIMS)
+PLAN_ARGTYPES = [ctypes.c_int] * 6
+# tensor cores: 64 query rows a block of 128 threads; CUDA cores: 64 query
+# rows and 32-position kv tiles a block of 256 threads
+TC_ROWS, TC_THREADS, F32_ROWS, F32_KV, F32_THREADS = 64, 128, 64, 32, 256
+
+
+def launch_plan(b: int, h: int, kh: int, s: int, d: int, dtype: int):
+    """The forward's one launch: on the tensor cores a block per (head,
+    row, TC_ROWS positions) with the q tile and a four-stage kv ring in
+    shared memory; on the CUDA cores a block per (F32_ROWS positions,
+    head, row) with padded q, k, v and score tiles. The kernel's whole
+    shared memory is opted in either way."""
+    if b <= 0 or h <= 0 or s <= 0:
+        return ()
+    if dtype == 1:
+        return (checks.Launch(
+            f"tc::flash_attention_kernel<{d}>",
+            (h, b, checks.cdiv(s, TC_ROWS)), (TC_THREADS, 1, 1),
+            smem=(TC_ROWS + 4 * TC_ROWS) * d * 2, optin=True,
+            tiles=((0, 1, h, False), (1, 1, b, False),
+                   (2, TC_ROWS, s, False))),)
+    smem = (F32_ROWS * (d + 1) + F32_KV * (d + 1) + F32_KV * d
+            + F32_ROWS * (F32_KV + 1)) * 4
+    return (checks.Launch(
+        f"f32::flash_attention_kernel<{d}>",
+        (checks.cdiv(s, F32_ROWS), h, b), (F32_THREADS, 1, 1), smem=smem,
+        optin=True, tiles=((0, F32_ROWS, s, False), (1, 1, h, False),
+                           (2, 1, b, False))),)
+
+
+def bwd_launch_plan(b: int, h: int, kh: int, s: int, d: int, dtype: int):
+    """The backward's two launches over BWD_TILE-position tiles, dq then
+    dkv: on the tensor cores a block per (query head, row, tile) of
+    TC_THREADS threads and per (kv head, row, tile) of two warpgroups; on
+    the CUDA cores a block per (tile, row x head) of F32_THREADS threads,
+    their grids' y being B x H and B x K. Each launch's whole shared
+    memory is opted in."""
+    t = checks.cdiv(s, BWD_TILE)
+    if dtype == 1:
+        return (
+            checks.Launch(f"tc::dq_kernel<{d}>", (h, b, t),
+                          (TC_THREADS, 1, 1),
+                          smem=6 * BWD_TILE * d * 2 + BWD_TILE * 4,
+                          optin=True, tiles=((0, 1, h, False),
+                                             (1, 1, b, False),
+                                             (2, BWD_TILE, s, False))),
+            checks.Launch(f"tc::dkv_kernel<{d}>", (kh, b, t),
+                          (2 * TC_THREADS, 1, 1),
+                          smem=10 * BWD_TILE * d * 2 + 8 * BWD_TILE * 4,
+                          optin=True, tiles=((0, 1, kh, False),
+                                             (1, 1, b, False),
+                                             (2, BWD_TILE, s, False))))
+
+    def smem(scores):
+        return (4 * BWD_TILE * (d + 1) + scores * BWD_TILE * (BWD_TILE + 1)
+                + 2 * BWD_TILE) * 4
+
+    return (
+        checks.Launch(f"f32::dq_kernel<float, {d}>", (t, b * h, 1),
+                      (F32_THREADS, 1, 1), smem=smem(1), optin=True,
+                      tiles=((0, BWD_TILE, s, False),
+                             (1, 1, b * h, False))),
+        checks.Launch(f"f32::dkv_kernel<float, {d}>", (t, b * kh, 1),
+                      (F32_THREADS, 1, 1), smem=smem(2), optin=True,
+                      tiles=((0, BWD_TILE, s, False),
+                             (1, 1, b * kh, False))))
+
+
+def plan_c_args(b: int, h: int, kh: int, s: int, d: int, dtype: int):
+    """The C plans' arguments for :func:`launch_plan`'s (both plans')."""
+    return (b, h, kh, s, d, dtype)
+
 
 def _shapes(q: torch.Tensor, k: torch.Tensor, kernel: str):
     """(B, H, K, S, D) of q ``[B, H, S, D]`` and k ``[B, K, S, D]``; raises
@@ -125,6 +207,7 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)  # q's strides, or contiguous: aligned either way
     strides = (ctypes.c_int64 * 12)(*(
         st for t in (q, k, v, out) for st in t.stride()[:3]))
+    checks.launching(KERNEL, b=b, h=h, kh=kh, s=s, d=d, dtype=code)
     fn = checks.launcher(KERNEL, "flash_attention_launch", _ARGTYPES)
     checks.run(KERNEL, fn, q.device, q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
@@ -174,6 +257,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty_like(lse)
     strides = (ctypes.c_int64 * 15)(*(
         st for t in (q, k, v, out, dout) for st in t.stride()[:3]))
+    checks.launching(BWD_KERNEL, b=b, h=h, kh=kh, s=s, d=d, dtype=code)
     fn = checks.launcher(BWD_KERNEL, "flash_attention_bwd_launch",
                          _BWD_ARGTYPES)
     checks.run(BWD_KERNEL, fn, q.device, q.data_ptr(), k.data_ptr(),

@@ -11,7 +11,7 @@ dtype before the value product, as the reference does.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -20,10 +20,15 @@ NEG_INF = -1e30
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool, q_offset: int = 0,
-               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+               kv_len: Optional[torch.Tensor] = None, kv_offset: int = 0,
+               softmax: Optional[Callable[[torch.Tensor], torch.Tensor]]
+               = None) -> torch.Tensor:
     """q ``[B, Sq, H, Dh]``; k, v ``[B, Skv, K, Dh]`` (GQA by kv-head
     broadcasting) -> ``[B, Sq, H, Dv]`` in q's dtype. ``q_offset`` is the
-    absolute position of q[0]; ``kv_len [B]`` masks the cache tail."""
+    absolute position of q[0]; ``kv_len [B]`` masks the cache tail, where
+    k[:, 0] sits at position ``kv_offset``. ``softmax`` normalises the
+    float32 scores over the last dimension in place of ``torch.softmax``
+    (a partition of the keys normalises across its slices with it)."""
     b, sq, h, dh = q.shape
     _, skv, kh, _ = k.shape
     g = h // kh
@@ -36,9 +41,11 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = kpos[None, :] <= qpos[:, None]
         scores = scores.masked_fill(~mask[None, None, None], NEG_INF)
     if kv_len is not None:
-        valid = torch.arange(skv, device=q.device)[None, :] < kv_len[:, None]
+        pos = torch.arange(kv_offset, kv_offset + skv, device=q.device)
+        valid = pos[None, :] < kv_len[:, None]
         scores = scores.masked_fill(~valid[:, None, None, None], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = (torch.softmax(scores, dim=-1) if softmax is None
+             else softmax(scores)).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(b, sq, h, v.shape[-1])
 

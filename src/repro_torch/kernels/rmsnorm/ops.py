@@ -47,6 +47,119 @@ _BWD_PAIR_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int]) * 2 + [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 
+# The launch plans (``rmsnorm_plan`` and ``rmsnorm_bwd_plan`` in the
+# sources): the entries of each type, float then bfloat16.
+_TYPES = ("float", "bf16")
+DTYPES = {0: torch.float32, 1: torch.bfloat16}
+ENTRIES = tuple(
+    name for t in _TYPES for name in (
+        *(f"rmsnorm_vec_rows_kernel<{t}, {lanes}, {v}>"
+          for lanes in (4, 8, 16, 32) for v in (1, 2, 3, 4)),
+        f"rmsnorm_vec_block_kernel<{t}>", f"rmsnorm_rows_kernel<{t}>",
+        f"rmsnorm_kernel<{t}, 128>", f"rmsnorm_kernel<{t}, 256>"))
+BWD_ENTRIES = tuple(
+    name for t in _TYPES for name in (
+        *(f"rmsnorm_bwd_vec_kernel<{t}, {v}>" for v in (1, 2, 3, 4)),
+        f"rmsnorm_bwd_scalar_kernel<{t}>")) + ("rmsnorm_bwd_reduce",)
+PLAN_ARGTYPES = [ctypes.c_int] * 5
+BWD_PLAN_ARGTYPES = [ctypes.c_int] * 10
+# the forward's layouts: 256-thread blocks of LANES-lane rows up to
+# 32 x FWD_BLOCK_VECS vectors, a block a row (32 x FWD_BLOCK_VECS vectors a
+# warp) up to 32 times that, else a warp a row up to D = 512 (8 rows a
+# block) and a block of 128 or 256 threads a row above; the backward's
+# reduction takes 32 columns by 32 lanes a block
+FWD_BLOCK_VECS, RED_COLS, RED_LANES = 4, 32, 32
+
+
+def _rows_segments(per: int, t_a: int, t_b: int, per_b: int = 0):
+    """The rows axis' tiles: a's blocks, then b's."""
+    return tuple((0, p, t, False) for p, t in ((per, t_a), (per_b or per,
+                                                             t_b)) if t > 0)
+
+
+def launch_plan(t_a: int, t_b: int, d: int, dtype: int, aligned: int):
+    """The forward's one launch over both tensors (a's blocks first), as
+    the source picks its layout: 16-byte vectors where D allows and every
+    address is aligned (LANES lanes a row, or a block a row past 128
+    vectors), else a warp a row up to D = 512 and a block a row above.
+    The kernels address a row's columns with 32-bit offsets."""
+    if t_a < 0 or t_b < 0 or t_a + t_b == 0 or d <= 0:
+        return ()
+    t = _TYPES[dtype != 0]
+    elems = VEC_BYTES // (4 if dtype == 0 else 2)
+    nvec = d // elems
+    vec = d % elems == 0 and nvec <= 32 * FWD_BLOCK_VECS * 32 and aligned
+    if vec and nvec <= 32 * FWD_BLOCK_VECS:
+        lanes = next(n for n in (4, 8, 16, 32) if nvec <= n or n == 32)
+        v = min(checks.cdiv(nvec, lanes), 4)
+        entry, threads = f"rmsnorm_vec_rows_kernel<{t}, {lanes}, {v}>", 256
+        per = 256 // lanes
+    elif vec:
+        entry = f"rmsnorm_vec_block_kernel<{t}>"
+        threads, per = 32 * checks.cdiv(nvec, 32 * FWD_BLOCK_VECS), 1
+    elif d <= 512:
+        entry, threads, per = f"rmsnorm_rows_kernel<{t}>", 256, 8
+    else:
+        threads = 128 if d <= 1024 else 256
+        entry, per = f"rmsnorm_kernel<{t}, {threads}>", 1
+    return (checks.Launch(
+        entry, (checks.cdiv(t_a, per) + checks.cdiv(t_b, per), 1, 1),
+        (threads, 1, 1), tiles=_rows_segments(per, t_a, t_b),
+        index32=(("a row", d),)),)
+
+
+def plan_c_args(t_a: int, t_b: int, d: int, dtype: int, aligned: int):
+    """``rmsnorm_plan``'s arguments for :func:`launch_plan`'s."""
+    return (t_a, t_b, d, dtype, int(aligned))
+
+
+def _bwd_args(t_a: int, t_b: int, d: int, dtype: int, aligned: int):
+    """(layout, lanes, rows a block of a and of b) of the backward, as
+    :func:`_bwd_launch` passes them."""
+    torch_dtype = DTYPES[dtype]
+    layout, _, per_a = bwd_plan(t_a, d, torch_dtype, bool(aligned))
+    _, _, per_b = bwd_plan(t_b, d, torch_dtype, bool(aligned))
+    lanes, _ = bwd_row_threads(layout, d, torch_dtype)
+    return layout, lanes, per_a, per_b
+
+
+def bwd_launch_plan(t_a: int, t_b: int, d: int, dtype: int, aligned: int,
+                    two: int):
+    """The backward's launches: the rows (none where both tensors are
+    empty) by :func:`bwd_plan`'s layout, ``lanes`` threads a row and its
+    rows a block, their [slots, D] float fold in dynamic shared memory
+    (opted in past 48 KB); then the gains' reduction, a block per
+    (RED_COLS columns, gain). ``two``: a second gain (the pair)."""
+    layout, lanes, per_a, per_b = _bwd_args(t_a, t_b, d, dtype, aligned)
+    t = _TYPES[dtype != 0]
+    slots = 1 if lanes >= ROW_THREADS else ROW_THREADS // lanes
+    smem = slots * d * 4 if slots > 1 or layout == "scalar" else 0
+    blocks = sum(checks.cdiv(n, per) for n, per in ((t_a, per_a),
+                                                   (t_b, per_b)) if n > 0)
+    out = []
+    if blocks:
+        nvec = d * (4 if dtype == 0 else 2) // VEC_BYTES
+        entry = (f"rmsnorm_bwd_scalar_kernel<{t}>" if layout == "scalar"
+                 else f"rmsnorm_bwd_vec_kernel<{t}, "
+                      f"{checks.cdiv(nvec, lanes)}>")
+        out.append(checks.Launch(
+            entry, (blocks, 1, 1), (lanes * slots, 1, 1), smem=smem,
+            optin=smem > 48 * 1024,
+            tiles=_rows_segments(per_a, t_a, t_b, per_b),
+            index32=(("a row", d),)))
+    out.append(checks.Launch(
+        "rmsnorm_bwd_reduce", (checks.cdiv(d, RED_COLS), 2 if two else 1, 1),
+        (RED_COLS, RED_LANES, 1), tiles=((0, RED_COLS, d, False),)))
+    return tuple(out)
+
+
+def bwd_plan_c_args(t_a: int, t_b: int, d: int, dtype: int, aligned: int,
+                    two: int):
+    """``rmsnorm_bwd_plan``'s arguments for :func:`bwd_launch_plan`'s."""
+    layout, lanes, per_a, per_b = _bwd_args(t_a, t_b, d, dtype, aligned)
+    return (t_a, t_b, d, dtype, BWD_LAYOUTS.index(layout), lanes, per_a,
+            per_b, int(aligned), int(two))
+
 
 def bwd_row_threads(layout: str, d: int, dtype: torch.dtype):
     """(threads a row, rows in flight a block) of the backward's ``layout``
@@ -106,6 +219,11 @@ def _check(x: torch.Tensor, gain: torch.Tensor, name: str,
     return code
 
 
+def _aligned(*tensors: torch.Tensor) -> int:
+    """1 where every base address is 16-byte aligned."""
+    return int(all(t.data_ptr() % VEC_BYTES == 0 for t in tensors))
+
+
 def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -116,6 +234,8 @@ def _rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
     code = _check(x, gain, "x")
     t, d = x.shape
     out = torch.empty_like(x)
+    checks.launching(KERNEL, t_a=t, t_b=0, d=d, dtype=code,
+                     aligned=_aligned(x, gain, out))
     fn = checks.launcher(KERNEL, "rmsnorm_launch", _ARGTYPES)
     checks.run(KERNEL, fn, x.device, x.data_ptr(), gain.data_ptr(),
                out.data_ptr(), t, d, float(eps), code)
@@ -152,6 +272,10 @@ def _rmsnorm_pair(xq: torch.Tensor, gq: torch.Tensor, xk: torch.Tensor,
         return checks.run_plain(KERNEL, _plain_pair, xq, gq, xk, gk, eps)
     code = _check_pair(xq, gq, xk, gk, KERNEL)
     oq, ok = torch.empty_like(xq), torch.empty_like(xk)
+    checks.launching(KERNEL, t_a=xq.shape[0], t_b=xk.shape[0],
+                     d=xq.shape[1], dtype=code,
+                     aligned=(_aligned(xq, gq, oq) or not xq.shape[0])
+                     and (_aligned(xk, gk, ok) or not xk.shape[0]))
     fn = checks.launcher(KERNEL, "rmsnorm_pair_launch", _PAIR_ARGTYPES)
     checks.run(KERNEL, fn, xq.device,
                xq.data_ptr(), gq.data_ptr(), oq.data_ptr(), xq.shape[0],
@@ -240,6 +364,8 @@ def _bwd_launch(x, gain, dy, xk=None, gk=None, dyk=None, eps=1e-6):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    checks.launching(BWD_KERNEL, t_a=x.shape[0], t_b=t_k, d=d, dtype=code,
+                     aligned=int(aligned), two=int(pair))
     fn = checks.launcher(BWD_KERNEL, "rmsnorm_pair_bwd_launch",
                          _BWD_PAIR_ARGTYPES)
     checks.run(BWD_KERNEL, fn, x.device,

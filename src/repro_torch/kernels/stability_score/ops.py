@@ -20,6 +20,44 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p, ctypes.c_void_p]
 
+# The launch plan (``stability_score_plan`` in the source): the kernel
+# entries, and the source's constants that shape the grid.
+ENTRIES = ("score_warp_kernel", "score_tile_kernel<8>",
+           "score_tile_kernel<4>", "score_tile_kernel<2>",
+           "score_tile_kernel<1>")
+PLAN_ARGTYPES = [ctypes.c_int] * 3
+WARP_TASKS, WARP_BLOCK_WARPS, TILE_WARPS = 4096, 8, 32
+MAX_K, MIN_TILE_BLOCKS = 8, 128
+
+
+def launch_plan(n: int, m: int, q: int):
+    """The launches of N candidates over an ``[M, Q]`` lattice: a warp a
+    candidate where M x Q is at most WARP_TASKS (blocks of
+    WARP_BLOCK_WARPS warps, one block of N warps where that is all), else
+    K candidates a block of TILE_WARPS warps, K halved from MAX_K until
+    there are MIN_TILE_BLOCKS blocks or K is 1. The kernel addresses the
+    lattice and the candidates with 32-bit offsets."""
+    if n <= 0 or m * q <= 0:
+        return ()
+    index32 = (("w, mask, tau", m * q), ("candidates", n))
+    if m * q <= WARP_TASKS:
+        blocks = checks.cdiv(n, WARP_BLOCK_WARPS)
+        warps = n if blocks == 1 else WARP_BLOCK_WARPS
+        return (checks.Launch(ENTRIES[0], (blocks, 1, 1), (32 * warps, 1, 1),
+                              tiles=((0, warps, n, False),),
+                              index32=index32),)
+    k = MAX_K
+    while k > 1 and checks.cdiv(n, k) < MIN_TILE_BLOCKS:
+        k //= 2
+    return (checks.Launch(f"score_tile_kernel<{k}>", (checks.cdiv(n, k), 1, 1),
+                          (32 * TILE_WARPS, 1, 1), tiles=((0, k, n, False),),
+                          index32=index32),)
+
+
+def plan_c_args(n: int, m: int, q: int):
+    """``stability_score_plan``'s arguments for :func:`launch_plan`'s."""
+    return (n, m, q)
+
 
 def stability_scores(w: torch.Tensor, mask: torch.Tensor,
                      cand_latency: torch.Tensor, cand_batch: torch.Tensor,
@@ -84,6 +122,7 @@ def launch(device: torch.device, w_ptr: int, mask_ptr: int,
     output. :func:`stability_scores` checks its tensors and calls this; the
     ``cuda`` scoring backend, which packs these arrays itself, calls it
     directly."""
+    checks.launching(KERNEL, n=n, m=m, q=q)
     fn = checks.launcher(KERNEL, "stability_score_launch", _ARGTYPES)
     checks.run(KERNEL, fn, device, w_ptr, mask_ptr, tau_ptr, tau_scalar,
                lat_ptr, batch_ptr, queue_ptr, n, m, q, clip, out_ptr)

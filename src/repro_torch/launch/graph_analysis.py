@@ -32,9 +32,16 @@ reaches a kernel and bills it by the same rules:
   broadcast / send / recv as collective-permute), which
   ``torch.distributed.tensor.debug.CommDebugMode`` counts but does not
   size.
-* **loops**: an eager Python loop runs its body once per trip and every
-  trip dispatches its ops again, so the trip-count weighting holds by
-  construction, nested loops included.
+* **loops**: an eager Python loop over a handful of trips (layers,
+  chunks, experts) runs its body once per trip, and every trip dispatches
+  its ops again, so those are billed trip by trip. A time loop over the
+  tokens (``models/mamba.py::_selective_scan``,
+  ``models/rwkv6.py::_wkv_scan``) asks ``kernels/checks.py::time_loop``
+  for its trips: under a counter it runs one trip, which :meth:`trips`
+  bills S times, the reference's ``known_trip_count`` weighting of a
+  ``lax.scan`` body (``src/repro/launch/hlo_analysis.py``), and returns
+  that trip's output broadcast over the S steps (the right shapes and
+  placements, not the values). Outside a counter the loop runs every trip.
 
 Over ``DTensor``s (a sharded program on a ``DeviceMesh``) the mode lets
 each ``DTensor`` op run its sharding rule and counts the local ops and the
@@ -57,6 +64,13 @@ do, or miss work it does), the counter partitions as XLA does:
 * the flash-attention kernel runs on each device's batch rows and query
   heads with the kv heads they read, also where a mesh dimension splits
   the query heads but not the kv heads;
+* MLA attention (``models/attention.py::_mla_attend``) runs with its
+  heads on the mesh dimension that shards them, or, where a decode cache
+  shards the keys' positions, split on those positions
+  (:func:`_mla_partition`); the WKV recurrence on each device's rows and
+  heads (:func:`_wkv_partition`): both on local shards, so that no
+  ``DTensor`` choice, which differs between torch 2.11 and 2.13, enters
+  the count;
 * a reshape that ``DTensor`` cannot shard (a dimension split 16 ways cut
   into 8 heads) gathers the dimensions it reshapes, as XLA reshards.
 
@@ -72,6 +86,7 @@ still alive during the run (arguments excluded), the counterpart of
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Dict, Tuple
 
@@ -379,6 +394,118 @@ def _local_attention(fn, args, kwargs):
     return tuple(grads), ql + kvl
 
 
+def _mla_partition(fn, args, kwargs):
+    """MLA attention (``models/attention.py::_mla_attend``: q ``[B, S, H,
+    dn + r]``, the latent c_kv ``[B, T, d_c]`` and rope key k_pe ``[B, T,
+    r]``, wkv_b ``[d_c, H * (dn + dv)]``) partitioned as XLA partitions the
+    reference's. The batch rows stay where q's lie. A mesh dimension that
+    shards q's heads (the "model" axis) shards them on every device: each
+    expands its own heads from the whole latent through its own columns of
+    wkv_b and attends with them, with no collective. Where a mesh
+    dimension shards the latent's positions instead (a decode cache,
+    sequence on "model"), that dimension splits the keys, as XLA's
+    partition of the reference's decode does: q's heads and wkv_b are
+    gathered, each device expands and attends over its slice of the cache,
+    and the softmax's max and sum and the output's partial sum are
+    all-reduced. Every op runs on local shards, so no ``DTensor`` choice
+    (which differs between torch versions) enters the count."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    q, c_kv, k_pe, wkv_b = args[:4]
+    kv_len = kwargs.get("kv_len")
+    if not all(isinstance(t, DTensor) for t in (q, c_kv, k_pe, wkv_b)):
+        return NotImplemented
+    mesh = q.device_mesh
+    seq = _sharded_on(c_kv, 1)
+    if len(seq) > 1:
+        return NotImplemented
+    rep = Replicate()
+    q_at, c_at, w_at, len_at = [], [], [], []
+    heads = False
+    for i, p in enumerate(q.placements):
+        if i in seq:
+            at = (rep, Shard(1), rep, rep)
+        elif isinstance(p, Shard) and p.dim == 0:
+            at = (p, p, rep, p)
+        elif isinstance(p, Shard) and p.dim == 2 and not heads:
+            heads = True
+            at = (p, rep, Shard(1), rep)
+        elif isinstance(p, Shard):
+            return NotImplemented
+        else:
+            at = (rep, rep, rep, rep)
+        for acc, a in zip((q_at, c_at, w_at, len_at), at):
+            acc.append(a)
+    q, c_kv, k_pe, wkv_b = (
+        t.redistribute(mesh, at) for t, at in
+        ((q, q_at), (c_kv, c_at), (k_pe, c_at), (wkv_b, w_at)))
+    rest = dict(kwargs)
+    if kv_len is not None:
+        rest["kv_len"] = _like(kv_len, mesh, len_at)
+    local = [t._local_tensor for t in (q, c_kv, k_pe, wkv_b)]
+    if seq:
+        out = _mla_split_keys(mesh, seq[0], *local, *args[4:], **rest)
+        if out is NotImplemented:
+            return out
+    else:
+        out = fn(*local, *args[4:], **rest)
+    return DTensor.from_local(out, mesh, q_at, run_check=False)
+
+
+def _mla_split_keys(mesh, axis, q, c_kv, k_pe, wkv_b, dn, dv, causal,
+                    kv_len=None):
+    """One device's share of MLA attention over keys split on mesh
+    dimension ``axis`` (its slice of a decode cache):
+    ``models/attention.py::_mla_attend`` on the slice, its softmax's max
+    and sum all-reduced over ``axis``, then the output."""
+    import torch.distributed._functional_collectives as funcol
+
+    from repro_torch.models.attention import _mla_attend
+
+    if causal and q.shape[1] > 1:
+        return NotImplemented
+
+    def softmax(scores):
+        m = funcol.all_reduce(scores.amax(-1, keepdim=True), "max",
+                              (mesh, axis))
+        e = torch.exp(scores - m)
+        return e / funcol.all_reduce(e.sum(-1, keepdim=True), "sum",
+                                     (mesh, axis))
+
+    out = _mla_attend(q, c_kv, k_pe, wkv_b, dn, dv, causal, kv_len=kv_len,
+                      kv_offset=mesh.get_coordinate()[axis] * c_kv.shape[1],
+                      softmax=softmax)
+    return funcol.all_reduce(out, "sum", (mesh, axis))
+
+
+def _wkv_partition(fn, args, kwargs):
+    """The WKV recurrence (``models/rwkv6.py::_wkv_scan``: r, k, v, w
+    ``[B, S, H, N]``, u ``[H, N]``, the state ``[B, H, N, N]`` or None)
+    on each device's batch rows and heads, where the reference's scan body
+    runs: each (row, head) is its own recurrence, so no collective; a
+    split of the positions or the channels is gathered first."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    r, k, v, w, u, state = args
+    if not all(isinstance(t, DTensor) for t in (r, k, v, w)) or kwargs:
+        return NotImplemented
+    mesh = r.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in r.placements]
+    heads = [Shard(0) if isinstance(p, Shard) and p.dim == 2 else Replicate()
+             for p in rows]
+    carried = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+               for p in rows]
+    local = [t.redistribute(mesh, rows)._local_tensor for t in (r, k, v, w)]
+    out, state = fn(*local, _like(u, mesh, heads),
+                    None if state is None else _like(state, mesh, carried))
+    return (DTensor.from_local(out, mesh, rows, run_check=False),
+            DTensor.from_local(state, mesh, carried, run_check=False))
+
+
+_PARTITIONS = {"mla_attention": _mla_partition, "wkv_scan": _wkv_partition}
+
+
 _LOCAL_KERNELS = {
     "flash_attention": _local_attention,
     "flash_attention_bwd": _local_attention,
@@ -420,7 +547,19 @@ class CostCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self._fused = 0   # > 0 inside a kernel's plain version
+        self._weight = 1  # the trips each op billed now stands for
         self._in_dtensor = False   # inside this mode's own DTensor op
+
+    @contextlib.contextmanager
+    def trips(self, n: int):
+        """Bill every op run inside ``n`` times: one trip of a loop of
+        ``n`` trips alike (``kernels/checks.py::time_loop``)."""
+        outer = self._weight
+        self._weight = outer * max(int(n), 1)
+        try:
+            yield
+        finally:
+            self._weight = outer
 
     def run_plain(self, kernel: str, fn, args, kwargs):
         """Run a kernel's plain version and bill it as the kernel (the
@@ -439,9 +578,23 @@ class CostCounter(TorchDispatchMode):
                 out, billed = out
         finally:
             self._fused -= 1
-        self.bytes += float(sum(_nbytes(t) for t in _tensors(billed))
-                            + sum(_nbytes(t) for t in _tensors(out)))
+        self.bytes += self._weight * float(
+            sum(_nbytes(t) for t in _tensors(billed))
+            + sum(_nbytes(t) for t in _tensors(out)))
         return out
+
+    def run_partitioned(self, name: str, fn, args, kwargs):
+        """Run a piece of plain torch (``kernels/checks.py::partitioned``)
+        over ``DTensor``s by its rule in ``_PARTITIONS``, its ops billed
+        as any other; elsewhere, or where the rule does not apply, as
+        written."""
+        rule = _PARTITIONS.get(name)
+        if rule is not None and _has_dtensor((args, kwargs)):
+            args, kwargs = tree_map(self._reduce_partial, (args, kwargs))
+            out = rule(fn, args, kwargs)
+            if out is not NotImplemented:
+                return out
+        return fn(*args, **kwargs)
 
     def _free(self, n: int) -> None:
         self.live_bytes -= n
@@ -488,19 +641,20 @@ class CostCounter(TorchDispatchMode):
         if (func in _FREE or not isinstance(func, torch._ops.OpOverload)
                 or func._schema.name in _FREE_NAMES):
             return out
-        self.ops += 1
+        w = self._weight
+        self.ops += w
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += float(flop_registry[packet](*args, **kwargs,
-                                                      out_val=out))
+            self.flops += w * float(flop_registry[packet](*args, **kwargs,
+                                                          out_val=out))
         kind = _collective_kind(func)
         if kind:
             nbytes = sum(_nbytes(t) for t in _tensors(out))
-            self.coll_bytes[kind] += nbytes
-            self.coll_counts[kind] += 1
+            self.coll_bytes[kind] += w * nbytes
+            self.coll_counts[kind] += w
         if func.is_view or self._fused:
             return out
-        self.bytes += self._op_bytes(func, args, kwargs, out)
+        self.bytes += w * self._op_bytes(func, args, kwargs, out)
         return out
 
     def _op_bytes(self, func, args, kwargs, out) -> float:

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import checks
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import sdpa_plain as _sdpa
@@ -216,16 +217,31 @@ def _mla_latent(params, x: torch.Tensor, cfg: MLAConfig, rotation
     return c_kv, rotate(k_pe[:, :, None, :], rotation)[:, :, 0, :]
 
 
-def _mla_expand(params, c_kv: torch.Tensor, k_pe: torch.Tensor,
-                cfg: MLAConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-head (k ``[B, S, H, dn + r]``, v ``[B, S, H, dv]``) from the
-    latent and the shared rope key."""
-    b, s, _ = c_kv.shape
-    h = cfg.num_heads
-    kv = (c_kv @ params["wkv_b"]).reshape(
-        b, s, h, cfg.qk_nope_head_dim + cfg.v_head_dim)
-    k_nope, v = kv.split([cfg.qk_nope_head_dim, cfg.v_head_dim], -1)
-    k_pe = k_pe[:, :, None, :].expand(b, s, h, cfg.qk_rope_head_dim)
+def _mla_attend(q: torch.Tensor, c_kv: torch.Tensor, k_pe: torch.Tensor,
+                wkv_b: torch.Tensor, dn: int, dv: int, causal: bool,
+                kv_len: Optional[torch.Tensor] = None,
+                **split) -> torch.Tensor:
+    """MLA's attention proper: q ``[B, S, H, dn + r]`` over per-head keys
+    and values expanded from the latent c_kv ``[B, T, d_c]`` by wkv_b
+    ``[d_c, H * (dn + dv)]``, the shared rope key k_pe ``[B, T, r]``
+    broadcast over the heads. Returns ``[B, S, H, dv]``. The heads are
+    wkv_b's (a device's shard of them under the cost counter's partition,
+    ``launch/graph_analysis.py::_mla_partition``); ``split`` (``_sdpa``'s
+    ``kv_offset`` and ``softmax``) attends over one slice of the keys
+    there."""
+    k, v = _mla_kv(c_kv, k_pe, wkv_b, dn, dv)
+    return _sdpa(q, k, v, causal, kv_len=kv_len, **split)
+
+
+def _mla_kv(c_kv: torch.Tensor, k_pe: torch.Tensor, wkv_b: torch.Tensor,
+            dn: int, dv: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-head (k ``[B, T, H, dn + r]``, v ``[B, T, H, dv]``) from the
+    latent and the shared rope key (:func:`_mla_attend`)."""
+    b, t, _ = c_kv.shape
+    h = wkv_b.shape[-1] // (dn + dv)
+    kv = (c_kv @ wkv_b).reshape(b, t, h, dn + dv)
+    k_nope, v = kv.split([dn, dv], -1)
+    k_pe = k_pe[:, :, None, :].expand(b, t, h, k_pe.shape[-1])
     return torch.cat([k_nope, k_pe], -1), v
 
 
@@ -245,8 +261,10 @@ def mla_attention(params, x: torch.Tensor, cfg: MLAConfig,
                                    x.device)
         q_nope, q_pe = _mla_q(params, x, cfg, rotation)
         c_kv, k_pe = _mla_latent(params, x, cfg, rotation)
-        k, v = _mla_expand(params, c_kv, k_pe, cfg)
-        out = _sdpa(torch.cat([q_nope, q_pe], -1), k, v, cfg.causal)
+        out = checks.partitioned(
+            "mla_attention", _mla_attend, torch.cat([q_nope, q_pe], -1),
+            c_kv, k_pe, params["wkv_b"], cfg.qk_nope_head_dim,
+            cfg.v_head_dim, cfg.causal)
         new_cache = None
         if position is not None:
             new_cache = {"c_kv": c_kv, "k_pe": k_pe,
@@ -262,10 +280,11 @@ def mla_attention(params, x: torch.Tensor, cfg: MLAConfig,
         c_new, pe_new = _mla_latent(params, x, cfg, rotation)
         c_all, pe_all = cache["c_kv"], cache["k_pe"]
         _write_at_row0(cache_len, (c_all, c_new), (pe_all, pe_new))
-        k, v = _mla_expand(params, c_all.to(x.dtype), pe_all.to(x.dtype),
-                           cfg)
-        out = _sdpa(torch.cat([q_nope, q_pe], -1), k, v, causal=False,
-                    kv_len=cache_len + 1)
+        out = checks.partitioned(
+            "mla_attention", _mla_attend, torch.cat([q_nope, q_pe], -1),
+            c_all.to(x.dtype), pe_all.to(x.dtype), params["wkv_b"],
+            cfg.qk_nope_head_dim, cfg.v_head_dim, False,
+            kv_len=cache_len + 1)
         new_cache = {"c_kv": c_all, "k_pe": pe_all, "len": cache_len + 1}
     return out.reshape(b, s, h * cfg.v_head_dim) @ params["wo"], new_cache
 

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import checks
 from repro_torch.models.common import _frozen, make_param
 
 
@@ -85,11 +86,13 @@ def _selective_scan(x, dt, b_t, c_t, a, d_skip, h0):
          if h0 is None else h0.to(f32))
     dtx = dt32 * x32
     ys = []
-    for t in range(s):
-        da = torch.exp(dt32[:, t, :, None] * a[None])         # [B, Di, N]
-        h = da * h + dtx[:, t, :, None] * b32[:, t, None, :]
-        ys.append(torch.bmm(h, c32[:, t, :, None])[..., 0])   # [B, Di]
-    y = torch.stack(ys, dim=1) + x32 * d_skip
+    with checks.time_loop(s) as trips:   # s, or 1 under a cost count
+        for t in range(trips):
+            da = torch.exp(dt32[:, t, :, None] * a[None])     # [B, Di, N]
+            h = da * h + dtx[:, t, :, None] * b32[:, t, None, :]
+            ys.append(torch.bmm(h, c32[:, t, :, None])[..., 0])  # [B, Di]
+    y = (torch.stack(ys, dim=1) if trips == s
+         else ys[0][:, None, :].expand(bsz, s, di)) + x32 * d_skip
     return y, h
 
 

@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import checks
 from repro_torch.models.common import make_param, rms_norm
 
 
@@ -97,12 +98,15 @@ def _wkv_scan(r, k, v, w, u, state):
         state = torch.zeros((b, h, n, n), dtype=f32, device=r.device)
     u4 = u.to(f32)[None, :, :, None]
     outs = []
-    for t in range(s):
-        kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]    # [B, H, N, N]
-        outs.append(torch.matmul(r32[:, t, :, None, :],
-                                 state + u4 * kv)[..., 0, :])
-        state = w32[:, t, :, :, None] * state + kv
-    return torch.stack(outs, dim=1).to(r.dtype), state
+    with checks.time_loop(s) as trips:   # s, or 1 under a cost count
+        for t in range(trips):
+            kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]  # [B,H,N,N]
+            outs.append(torch.matmul(r32[:, t, :, None, :],
+                                     state + u4 * kv)[..., 0, :])
+            state = w32[:, t, :, :, None] * state + kv
+    out = (torch.stack(outs, dim=1) if trips == s
+           else outs[0][:, None].expand(b, s, h, n))
+    return out.to(r.dtype), state
 
 
 def _wkv_chunked(r, k, v, w, u, state, chunk: int):
@@ -186,7 +190,8 @@ def time_mix(params, x: torch.Tensor, cfg: RWKV6Config,
     if cfg.chunk > 0 and s > 1 and s % min(cfg.chunk, s) == 0:
         out, wkv_state = _wkv_chunked(r, k, v, w, u, wkv_state, cfg.chunk)
     else:
-        out, wkv_state = _wkv_scan(r, k, v, w, u, wkv_state)
+        out, wkv_state = checks.partitioned("wkv_scan", _wkv_scan, r, k, v,
+                                            w, u, wkv_state)
     # the per-head group norm: one RMSNorm launch over B * S * H rows of N
     out = rms_norm(out, torch.ones((n,), dtype=out.dtype, device=out.device))
     out = out.reshape(b, s, d) * params["ln_out"]
