@@ -96,8 +96,11 @@ early-exit LMs (served quanta and KV-cache decode):
    (``launch/roofline.py::roofline_profile``; no measured P95 may be below
    its ``t_star``), the ``cuda`` simulator on the roofline table, the
    measured table and roofline plans against measured service (stability
-   launches = scoring rounds), and ``qwen3-8b`` ``train_4k`` lowered on the
-   (16, 16) production mesh (``launch/dryrun.py::lower_cell``);
+   launches = scoring rounds), ``qwen3-8b`` ``train_4k`` lowered on the
+   (16, 16) production mesh (``launch/dryrun.py::lower_cell``), its flops
+   a device held to the reference's count (``COST_REFERENCE_FLOPS``), and
+   the six families' two-layer train cells counted on this torch beside
+   the CPU's counts (``COST_TRAIN_CPU``);
 12. the rest of the model zoo (``lm_zoo``): the LM kernels against their
    plain versions at the zoo's new shapes (GQA groups 9 and 1, head dim
    64, the Seamless encoder's non-causal S = 1024, LLaVA's 2880 patches,
@@ -853,9 +856,32 @@ def phase_sim(device):
 
 COST_HORIZON_S = 3.0
 COST_CELL = ("qwen3-8b", "train_4k")   # lowered on the (16, 16) mesh
-# its flops a device x 256 over the 6ND model flops: 1.508 on the CPU
-# (torch 2.13); replicated attention or activations would be several times
-COST_FLOPS_BAND = (1.0, 2.0)
+# the reference's count of that cell, flops a device (its lower_cell, JAX
+# 0.9.0); tests/test_torch_dryrun_reference_train.py holds this constant
+# to the reference, and the cost phase the port's count on the card to it
+COST_REFERENCE_FLOPS = 667283298975744.0
+# the six families' train_4k cut to two layers on the (16, 16) mesh (the
+# overrides of tests/test_torch_dryrun_reference_train.py), and the port's
+# counts of them with torch 2.13 on the CPU: flops a device, collective
+# bytes a device, static bytes a device
+COST_TRAIN_CELLS = {
+    "qwen3-8b": {"num_layers": 2, "exits": (1, 2)},
+    "deepseek-moe-16b": {"num_layers": 2, "exits": (2,)},
+    "deepseek-v3-671b": {"num_layers": 2, "exits": (2,), "dense_prefix": 1},
+    "jamba-v0.1-52b": {"num_layers": 2, "exits": (2,), "attn_period": 2,
+                       "attn_offset": 1},
+    "rwkv6-1.6b": {"num_layers": 2, "exits": (1, 2)},
+    "seamless-m4t-large-v2": {"num_layers": 2, "exits": (1, 2)},
+}
+COST_TRAIN_CPU = {
+    "qwen3-8b": [64261300682752.0, 78886470804.0, 76980224.0],
+    "deepseek-moe-16b": [23492397367296.0, 77686899124.0, 51686912.0],
+    "deepseek-v3-671b": [239972707729408.0, 129018053620.0, 251763136.0],
+    "jamba-v0.1-52b": [39566312472576.0, 130093178440.0, 59399296.0],
+    "rwkv6-1.6b": [12128987643904.0, 82343633644.0, 45765632.0],
+    "seamless-m4t-large-v2": [90282292936704.0, 225769926884.0,
+                              463830784.0],
+}
 
 
 def _cost_mesh_checks(device, card):
@@ -902,7 +928,10 @@ def phase_cost(device, configs, measured, horizon=COST_HORIZON_S,
     simulator with the ``cuda`` backend on each table (and planning on the
     roofline table against the measured service times), stability launches
     = scoring rounds; (d) ``lower_cell`` of ``cell`` on the (16, 16)
-    production mesh. Returns the stability kernel's launches of (c)."""
+    production mesh, held to the reference's count; (e) the six two-layer
+    train cells (``COST_TRAIN_CELLS``) on this torch, printed beside the
+    CPU's counts, their flops and static bytes held equal to them.
+    Returns the stability kernel's launches of (c)."""
     import torch
 
     from repro_torch.core import (
@@ -992,16 +1021,45 @@ def phase_cost(device, configs, measured, horizon=COST_HORIZON_S,
          static_gib_per_device=rec["bytes_per_device_static"] / 2**30,
          model_flops=rec["model_flops"],
          lower_s=rec["lower_s"], run_s=rec["compile_s"])
-    # the 6ND model flops a device are the floor; the exits' heads and the
-    # attention add a third at this depth, and a count several times the
-    # floor is replicated work (see COST_FLOPS_BAND)
-    ratio = rec["hlo_metrics"]["flops"] * rec["num_devices"] / rec[
-        "model_flops"]
-    emit("cost_dryrun_check", card=card, flops_over_model_flops=ratio,
-         band=list(COST_FLOPS_BAND))
-    check(COST_FLOPS_BAND[0] <= ratio <= COST_FLOPS_BAND[1],
-          f"the production cell counts {ratio:.3f}x its model flops, "
-          f"outside {COST_FLOPS_BAND}")
+    # the reference's own count of the cell (COST_REFERENCE_FLOPS)
+    flops = rec["hlo_metrics"]["flops"]
+    emit("cost_dryrun_check", card=card, flops_per_device=flops,
+         reference_flops_per_device=COST_REFERENCE_FLOPS,
+         over_reference=flops / COST_REFERENCE_FLOPS,
+         flops_over_model_flops=flops * rec["num_devices"]
+         / rec["model_flops"], torch=torch.__version__)
+    check(abs(flops / COST_REFERENCE_FLOPS - 1.0) <= 1e-9,
+          f"the production cell counts {flops:.6e} flops a device, the "
+          f"reference {COST_REFERENCE_FLOPS:.6e}")
+
+    # (e) the six families' two-layer train cells on this torch, beside
+    # the CPU's counts (torch 2.13) recorded in COST_TRAIN_CPU: the flops
+    # and static bytes must not depend on the torch version (the counter's
+    # rules keep DTensor's choices out of them); the collective bytes may
+    cells = {}
+    prod = make_production_mesh(multi_pod=False)
+    try:
+        for arch, overrides in COST_TRAIN_CELLS.items():
+            rec = lower_cell(arch, "train_4k", prod, False,
+                             overrides=overrides)
+            cpu = COST_TRAIN_CPU[arch]
+            cells[arch] = dict(
+                flops=rec["hlo_metrics"]["flops"],
+                collective_bytes=rec["collectives"]["bytes"]["total"],
+                static_bytes=rec["bytes_per_device_static"],
+                run_s=rec["compile_s"], cpu=cpu,
+                flops_as_cpu=rec["hlo_metrics"]["flops"] == cpu[0],
+                static_as_cpu=rec["bytes_per_device_static"] == cpu[2],
+                collective_bytes_over_cpu=(
+                    rec["collectives"]["bytes"]["total"] / cpu[1]))
+    finally:
+        release_mesh()
+    emit("cost_train_cells", card=card, torch=torch.__version__,
+         cells=cells)
+    differ = [a for a, c in cells.items()
+              if not (c["flops_as_cpu"] and c["static_as_cpu"])]
+    check(not differ, f"train cells whose flops or static bytes differ "
+          f"from the CPU's on torch {torch.__version__}: {differ}")
     emit("cost_phase", card=card, seconds=time.perf_counter() - t_phase)
     return launches_total
 

@@ -186,10 +186,11 @@ def run_plain(kernel: str, fn, *args, **kwargs):
 
 def partitioned(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, a piece of plain torch that no kernel
-    takes, through the ``run_partitioned`` method of the innermost active
-    dispatch mode that has one: a cost count over ``DTensor``s runs it
-    partitioned as XLA's partitioner would (``launch/graph_analysis.py``),
-    where ``DTensor``'s own choices vary between torch versions."""
+    takes (or a layer loop's block, ``name`` ``"layer"``), through the
+    ``run_partitioned`` method of the innermost active dispatch mode that
+    has one: a cost count over ``DTensor``s runs it partitioned as XLA's
+    partitioner would (``launch/graph_analysis.py``), where ``DTensor``'s
+    own choices vary between torch versions."""
     for mode in reversed(_get_current_dispatch_mode_stack()):
         hook = getattr(mode, "run_partitioned", None)
         if hook is not None:

@@ -121,16 +121,23 @@ def _shard(tree, shardings):
 def lower_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
                serve_variant: str = "baseline", train_fsdp: bool = True,
                exit_idx: Optional[int] = None,
-               overrides: Optional[dict] = None):
+               overrides: Optional[dict] = None, ledger: bool = False):
     """Evaluate one (arch x shape) cell on ``mesh``; returns the record.
 
     ``overrides`` hot-patches LMConfig fields (e.g. {"rwkv_chunk": 32},
     {"mla_absorbed_decode": True}, {"vocab_pad_multiple": 256}, or a
-    cut depth {"num_layers": 2, "exits": (1, 2)}).
+    cut depth {"num_layers": 2, "exits": (1, 2)}). With ``ledger`` the
+    record adds ``"ledger"``: the counter's flops and collective bytes
+    by phase, rule and op (``CostCounter(ledger=True)``), as lists.
     """
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    if getattr(cfg, "remat", None) == "dots":
+        # XLA's "dots" policy keeps every product's output, so the
+        # reference's backward recomputes no product; the port's checkpoint
+        # would recompute the whole block
+        cfg = dataclasses.replace(cfg, remat="none")
     spec = SHAPES[shape_name]
     t0 = time.perf_counter()
     model = build_model(cfg, device="meta")
@@ -152,7 +159,7 @@ def lower_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
     values = _shard(shapes, p_sh)
     counter = CostCounter(grad_placements={
         tuple(v.shape): v.placements for v in values.values()}
-        if kind == "train" else None)
+        if kind == "train" else None, ledger=ledger, as_xla=True)
     if kind == "train":
         opt = pick_optimizer_for(cfg)
         opt_shapes = abstract_opt_state(opt, shapes)
@@ -191,6 +198,10 @@ def lower_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
 
     static_bytes = sum(bytes_per_device(tree, sh) for tree, sh in arg_trees)
     metrics = counter.metrics()
+    extra = {} if not ledger else {"ledger": {
+        "flops": [list(k) + [v] for k, v in counter.ledger.items()],
+        "collectives": [list(k) + [v]
+                        for k, v in counter.coll_ledger.items()]}}
     return {
         "arch": arch,
         "shape": shape_name,
@@ -212,6 +223,7 @@ def lower_cell(arch: str, shape_name: str, mesh, multi_pod: bool,
         "hlo_bytes": counter.ops,
         "serve_variant": serve_variant,
         "overrides": overrides or {},
+        **extra,
     }
 
 

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import checks
 from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_pair
 
 
@@ -309,7 +310,12 @@ def cast_floats(values: Mapping[str, torch.Tensor],
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token-level CE. logits ``[..., V]`` in float32, labels int."""
-    logits = logits.to(torch.float32)
+    return checks.partitioned("cross_entropy", _cross_entropy,
+                              logits.to(torch.float32), labels, mask)
+
+
+def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())
     # subtract before dropping the gathered axis: the same values, and the

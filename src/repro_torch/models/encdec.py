@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import DeviceLike
+from repro_torch.kernels import checks
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.models.attention import _sdpa, attention, init_attention
 from repro_torch.models.common import make_param, rms_norm
@@ -67,7 +68,8 @@ def cross_attention(params, x: torch.Tensor, enc_kv: dict, cfg
         out = decode_attention(q[:, 0].to(k.dtype), k.transpose(1, 2),
                                v.transpose(1, 2), lengths).to(q.dtype)
     else:
-        out = _sdpa(q, k, v, causal=False)
+        out = checks.partitioned("cross_attention", _sdpa, q, k, v,
+                                 causal=False)
     return out.reshape(b, s, h * dh) @ params["wo"]
 
 

@@ -31,6 +31,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import checks
 from repro_torch.models.common import make_param, make_stacked_param, swiglu
 
 
@@ -161,6 +162,25 @@ def _routing(params, x3d: torch.Tensor, cfg: MoEConfig):
     return w.to(x3d.dtype), idx, aux, top[..., -1], nxt
 
 
+def _experts(x3d, dispatch, combine, we_gate, we_up, we_down,
+             reduce=None) -> torch.Tensor:
+    """The routed experts: x3d ``[G, Tg, D]`` into the experts' buffers by
+    ``dispatch`` ``[G, Tg, E, C]``, each expert's SwiGLU, and back by
+    ``combine`` -> ``[G, Tg, D]``. ``reduce(stage, t)`` is applied to the
+    buffers (stage "buffers") and to the gate and up products ("products")
+    before the SwiGLU: a partition that splits a contraction sums its
+    partial products with it."""
+    xe = torch.einsum("gtd,gtec->gecd", x3d, dispatch)       # [G, E, C, D]
+    if reduce is not None:
+        xe = reduce("buffers", xe)
+    gate = torch.einsum("gecd,edf->gecf", xe, we_gate)
+    up = torch.einsum("gecd,edf->gecf", xe, we_up)
+    if reduce is not None:
+        gate, up = reduce("products", gate), reduce("products", up)
+    ye = torch.einsum("gecf,efd->gecd", swiglu(gate, up), we_down)
+    return torch.einsum("gecd,gtec->gtd", ye, combine)
+
+
 def moe(params, x: torch.Tensor, cfg: MoEConfig
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE forward. x ``[B, S, D]`` (or ``[T, D]``); returns (out, aux).
@@ -213,11 +233,9 @@ def moe(params, x: torch.Tensor, cfg: MoEConfig
             "next": nxt.reshape(g * tg)[:t],
             "kept": torch.stack(kept, -1).reshape(g * tg, k)[:t]})
 
-    xe = torch.einsum("gtd,gtec->gecd", x3d, dispatch)       # [G, E, C, D]
-    h = swiglu(torch.einsum("gecd,edf->gecf", xe, params["we_gate"]),
-               torch.einsum("gecd,edf->gecf", xe, params["we_up"]))
-    ye = torch.einsum("gecf,efd->gecd", h, params["we_down"])
-    out = torch.einsum("gecd,gtec->gtd", ye, combine).reshape(g * tg, d)
+    out = checks.partitioned(
+        "moe_experts", _experts, x3d, dispatch, combine, params["we_gate"],
+        params["we_up"], params["we_down"]).reshape(g * tg, d)
     if pad:
         out = out[:t]
     if cfg.num_shared > 0:

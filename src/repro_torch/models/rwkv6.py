@@ -101,9 +101,14 @@ def _wkv_scan(r, k, v, w, u, state):
     with checks.time_loop(s) as trips:   # s, or 1 under a cost count
         for t in range(trips):
             kv = k32[:, t, :, :, None] * v32[:, t, :, None, :]  # [B,H,N,N]
+            new = w32[:, t, :, :, None] * state + kv
+            # the one trip a cost count runs stands for every trip but the
+            # first: its output reads the state the decay has updated, so
+            # that its backward reaches w as theirs do
             outs.append(torch.matmul(r32[:, t, :, None, :],
-                                     state + u4 * kv)[..., 0, :])
-            state = w32[:, t, :, :, None] * state + kv
+                                     (state if trips == s else new)
+                                     + u4 * kv)[..., 0, :])
+            state = new
     out = (torch.stack(outs, dim=1) if trips == s
            else outs[0][:, None].expand(b, s, h, n))
     return out.to(r.dtype), state

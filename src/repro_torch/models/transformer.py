@@ -42,6 +42,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import checks
 from repro_torch.kernels.exit_head.ops import exit_head
 from repro_torch.models.attention import (
     AttentionConfig,
@@ -307,7 +308,14 @@ def remat_call(fn, remat: str, *args):
     ``"dots"`` policy keeps the products' outputs and recomputes the rest;
     here ``"dots"`` and ``"full"`` alike recompute the whole of ``fn`` (a
     block): the gradient is the same, only memory and time change. The
-    recomputation launches the block's forward kernels a second time."""
+    recomputation launches the block's forward kernels a second time.
+    ``fn``'s first argument after the block is the hidden state the layer
+    loop carries; a cost count over ``DTensor``s keeps its sharding from
+    block to block (``launch/graph_analysis.py::_layer_partition``)."""
+    return checks.partitioned("layer", _remat_call, fn, remat, *args)
+
+
+def _remat_call(fn, remat: str, *args):
     if remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
@@ -436,7 +444,9 @@ class EarlyExitLM(nn.Module):
     def _head(self, h: torch.Tensor, exit_idx: int) -> torch.Tensor:
         cfg = self.cfg
         h = rms_norm(h, self.exit_norms[exit_idx], cfg.norm_eps)
-        logits = (h @ self._unembedding().to(h.dtype)).to(torch.float32)
+        logits = checks.partitioned("unembed", torch.matmul, h,
+                                    self._unembedding().to(h.dtype))
+        logits = logits.to(torch.float32)
         return mask_padded_vocab(logits, cfg.vocab_size)
 
     # -- serving -----------------------------------------------------------

@@ -148,6 +148,29 @@ def _ref_order(path: str):
     return tuple(int(c) if c.isdigit() else c for c in path.split("."))
 
 
+def stacked_layers(names) -> Dict[str, int]:
+    """{name: the layers the reference stacks the parameter over}: a
+    block's ``segments.{i}.{l}.{path}`` over segment i's blocks, the
+    encoder's ``encoder.{l}.{path}`` over its blocks (the reference keeps
+    each as one leaf ``[n, ...]``, ``models/convert.py``); 0 for a
+    parameter the reference keeps as it is."""
+    def stack(name):
+        p = name.split(".")
+        if (p[0] == "segments" and len(p) > 3 and p[1].isdigit()
+                and p[2].isdigit()):
+            return ".".join(p[:2]), p[2]
+        if p[0] == "encoder" and len(p) > 2 and p[1].isdigit():
+            return "encoder", p[1]
+        return None, None
+
+    layers: Dict[str, set] = {}
+    for name in names:
+        prefix, layer = stack(name)
+        if prefix is not None:
+            layers.setdefault(prefix, set()).add(layer)
+    return {name: len(layers.get(stack(name)[0], ())) for name in names}
+
+
 def opt_state_shardings(opt: Optimizer, param_shapes: Values,
                         axes_tree: Dict[str, tuple], rules: ShardingRules,
                         mesh):
@@ -158,30 +181,55 @@ def opt_state_shardings(opt: Optimizer, param_shapes: Values,
     accumulators drop one dim: the matching logical axis is dropped from
     the spec by shape alignment. As in the reference, the first parameter
     of a shape (in the reference's flattening order) lends that shape its
-    axes.
+    axes, the shape being the one the reference's tree gives it: a block's
+    parameter stacked over its segment's layers (:func:`stacked_layers`),
+    so that a block's ``[D]`` vector and an exit's ``[D]`` norm do not
+    share their axes.
     """
     state_shapes = abstract_opt_state(opt, param_shapes)
+    stacked = stacked_layers(param_shapes)
+
+    def ref_shape(name, shape):
+        n = stacked.get(name, 0)
+        return ((n,) if n else ()) + tuple(shape)
 
     shape_to_axes = {}
     for name in sorted(param_shapes, key=_ref_order):
-        shape_to_axes.setdefault(tuple(param_shapes[name].shape),
-                                 axes_tree[name])
+        shape_to_axes.setdefault(
+            ref_shape(name, param_shapes[name].shape),
+            ((None,) if stacked.get(name) else ()) + tuple(axes_tree[name]))
 
-    def spec_by_shape(_path, s):
-        shape = tuple(s.shape)
+    def param_of(path):
+        parts = path.split(".")
+        for name in (".".join(parts[1:]), ".".join(parts[1:-1])):
+            if name in param_shapes:
+                return name
+        return None
+
+    def spec_by_shape(path, s):
+        name = param_of(path)
+        n = stacked.get(name, 0)
+        shape = ref_shape(name, s.shape)
+        spec = None
         if shape in shape_to_axes:
-            return NamedSharding(mesh, spec_for_param(
-                shape, shape_to_axes[shape], rules, mesh))
-        # factored accumulator: find a param shape it was reduced from
-        for pshape, axes in shape_to_axes.items():
-            if len(pshape) != len(shape) + 1:
-                continue
-            for drop in range(len(pshape)):
-                if tuple(d for i, d in enumerate(pshape) if i != drop) == shape:
-                    sub_axes = tuple(a for i, a in enumerate(axes) if i != drop)
-                    return NamedSharding(mesh, spec_for_param(
-                        shape, sub_axes, rules, mesh))
-        return NamedSharding(mesh, ())  # scalar counters etc.
+            spec = spec_for_param(shape, shape_to_axes[shape], rules, mesh)
+        else:
+            # factored accumulator: find a param shape it was reduced from
+            for pshape, axes in shape_to_axes.items():
+                if len(pshape) != len(shape) + 1:
+                    continue
+                for drop in range(len(pshape)):
+                    if tuple(d for i, d in enumerate(pshape)
+                             if i != drop) == shape:
+                        spec = spec_for_param(
+                            shape, tuple(a for i, a in enumerate(axes)
+                                         if i != drop), rules, mesh)
+                        break
+                if spec is not None:
+                    break
+        if spec is None:
+            return NamedSharding(mesh, ())  # scalar counters etc.
+        return NamedSharding(mesh, tuple(spec)[1:] if n else spec)
 
     return tree_map(spec_by_shape, state_shapes)
 
@@ -204,4 +252,5 @@ def pick_optimizer_for(cfg, lr=3e-4) -> Optimizer:
 
 __all__ = ["TrainConfig", "abstract_opt_state", "make_grad_fn",
            "make_train_step",
-           "master_values", "opt_state_shardings", "pick_optimizer_for"]
+           "master_values", "opt_state_shardings", "pick_optimizer_for",
+           "stacked_layers"]

@@ -21,23 +21,21 @@ only:
 
 The bands of port flops over reference flops:
 
-* Jamba, V3 prefill, DeepSeek-MoE: equal. The Mamba and WKV time loops
-  are billed as one trip times S (``kernels/checks.py::time_loop``), the
-  reference's ``known_trip_count`` weighting of its ``lax.scan``; MLA runs
-  with its heads on "model" and the WKV recurrence on each device's rows
-  and heads (``launch/graph_analysis.py::_mla_partition``,
-  ``_wkv_partition``).
+* Jamba, V3 prefill and decode, DeepSeek-MoE: equal. The Mamba and WKV
+  time loops are billed as one trip times S
+  (``kernels/checks.py::time_loop``), the reference's ``known_trip_count``
+  weighting of its ``lax.scan``; MLA runs with its heads on "model", the
+  WKV recurrence on each device's rows and heads, and the MoE's four
+  einsums on each device's experts and tokens
+  (``launch/graph_analysis.py::_mla_partition``, ``_wkv_partition``,
+  ``_moe_partition``). The MLA decode is split on the cache's positions,
+  as XLA splits it.
 * RWKV6 prefill: 1.0-1.02. XLA computes the decay LoRA's second product
   (``tanh(xw @ decay_a) @ decay_b``) for the device's own channels only,
   as its consumer, the decay reshaped into heads, is sharded on "model".
   ``DTensor`` computes the whole ``[T, 2048]`` product on each device of
   the axis (``decay_b`` is replicated under the serve rules), which is
   1.61e10 flops a layer more: 1.51% of the cell.
-* V3 decode: 1.0-1.001. The MLA decode is split on the cache's positions,
-  as XLA splits it. The MoE's dispatch and combine einsums run over all
-  256 experts on each device, where XLA runs the device's 16: 2.75e8
-  flops more, 2.5e-4 of the cell (the cache's expansion through ``wkv_b``
-  is 99% of it).
 
 Collective bytes a device agree within a factor of 4 either way, as for
 the dense cells (the two partitioners reduce and gather at different
@@ -72,7 +70,7 @@ CELLS = {
     ("deepseek-v3-671b", "prefill_32k", "single"): (
         {"num_layers": 2, "exits": (2,), "dense_prefix": 1}, (1.0, 1.0)),
     ("deepseek-v3-671b", "decode_32k", "single"): (
-        {"num_layers": 2, "exits": (2,), "dense_prefix": 1}, (1.0, 1.001)),
+        {"num_layers": 2, "exits": (2,), "dense_prefix": 1}, (1.0, 1.0)),
     ("deepseek-moe-16b", "prefill_32k", "single"): (
         {"num_layers": 2, "exits": (2,)}, (1.0, 1.0)),
 }

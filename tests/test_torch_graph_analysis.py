@@ -209,6 +209,13 @@ def test_flops_equal_the_references_hlo_metrics(case):
 # -- a sharded program partitioned as XLA partitions it ----------------------
 
 
+def _count_as_xla(fn):
+    """``count(fn)`` as the dry-run counts (``CostCounter(as_xla=True)``)."""
+    with CostCounter(as_xla=True) as c:
+        out = fn()
+    return out, c
+
+
 def _shard(mesh, spec, *shape, dtype=torch.float32):
     from repro_torch.distributed.sharding import NamedSharding
 
@@ -220,14 +227,31 @@ def test_embedding_gather_keeps_the_batch_sharding(production_mesh):
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = production_mesh
-    # the train rules' table: vocab over "model", embed over "data"
-    table = _shard(mesh, ("model", "data"), 4096, 1024)
+    # the serve rules' table: vocab over "model", embed whole
+    table = _shard(mesh, ("model", None), 4096, 1024)
     tokens = _shard(mesh, ("data", None), 256, 64, dtype=torch.int64)
     out, c = count(lambda: table[tokens])
     assert out.placements == (Shard(0), Replicate())
     assert tuple(out.to_local().shape) == (256 // 16, 64, 1024)
     assert c.flops == 0
     # the rows are looked up where they lie: the table is not gathered
+    assert sum(c.coll_bytes.values()) < 4096 * 1024 * 4
+
+
+def test_fsdp_table_lookup_replicates_the_rows(production_mesh):
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = production_mesh
+    # the train rules' table: vocab over "model", embed over "data"; XLA
+    # keeps it in place and gathers the indices, so every device of
+    # "data" looks up every row for its slice of the embedding
+    table = _shard(mesh, ("model", "data"), 4096, 1024)
+    tokens = _shard(mesh, ("data", None), 256, 64, dtype=torch.int64)
+    out, c = count(lambda: table[tokens])
+    assert out.placements == (Shard(2), Replicate())
+    assert tuple(out.to_local().shape) == (256, 64, 1024 // 16)
+    assert c.flops == 0
+    # the indices are gathered, the table is not
     assert sum(c.coll_bytes.values()) < 4096 * 1024 * 4
 
 
@@ -300,17 +324,47 @@ def test_attention_backward_on_shards(production_mesh):
         out = flash_attention(q, k, v, causal=True)
         return torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
 
-    (dq, dk, dv), c = count(step)
+    fwd = 2 * 2 * (b // 16) * (h // 16) * s * s * d
+    (dq, dk, dv), c = _count_as_xla(step)
     assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
     assert dq.placements == q.placements
-    fwd = 2 * 2 * (b // 16) * (h // 16) * s * s * d
-    # the plain backward recomputes P, then dP, dq, dk and dv
+    # XLA's autodiff of the reference's attention: dP, dq, dk and dv; the
+    # kernel's recompute of P is not billed (XLA keeps P)
+    assert c.flops == fwd + 2 * fwd
+    # any other count bills the kernel's own backward on the shards: the
+    # recompute of P, then dP, dq, dk and dv
+    (dq, dk, dv), c = count(step)
+    assert dq.placements == q.placements
     assert c.flops == fwd + 5 * fwd // 2
+
+
+def test_attention_backward_on_every_row_splits_dv(production_mesh):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    mesh = production_mesh
+    b, h, kh, s, d = 16, 32, 8, 64, 32
+    # every batch row on each device (the train rules' lookup)
+    q = _shard(mesh, (None, "model", None, None), b, h, s, d)
+    k = _shard(mesh, (None, None, None, None), b, kh, s, d)
+    v = _shard(mesh, (None, None, None, None), b, kh, s, d)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+
+    def step():
+        out = flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+
+    (dq, dk, dv), c = _count_as_xla(step)
+    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
+    fwd = 2 * 2 * b * (h // 16) * s * s * d
+    # dP, dq and dk whole, and dv on half its columns: the two devices of
+    # "model" that share a kv head split its dv, as XLA does
+    assert c.flops == fwd + 3 * fwd // 2 + fwd // 4
 
 
 def test_lookup_backward_adds_rows_into_a_partial_table(production_mesh):
     mesh = production_mesh
-    table = _shard(mesh, ("model", "data"), 4096, 1024).requires_grad_(True)
+    table = _shard(mesh, ("model", None), 4096, 1024).requires_grad_(True)
     tokens = _shard(mesh, ("data", None), 256, 64, dtype=torch.int64)
 
     def step():
@@ -323,6 +377,27 @@ def test_lookup_backward_adds_rows_into_a_partial_table(production_mesh):
     # on "model"; no gradient row is gathered
     assert grad.placements[0].is_partial()
     assert tuple(grad.to_local().shape) == (4096, 1024)
+    assert sum(c.coll_bytes.values()) < 4096 * 1024 * 4
+
+
+def test_fsdp_lookup_backward_adds_rows_into_each_slice(production_mesh):
+    from torch.distributed.tensor import Shard
+
+    mesh = production_mesh
+    table = _shard(mesh, ("model", "data"), 4096, 1024).requires_grad_(True)
+    tokens = _shard(mesh, ("data", None), 256, 64, dtype=torch.int64)
+
+    def step():
+        out = table[tokens]
+        return torch.autograd.grad(out, table, torch.ones_like(out))[0]
+
+    grad, c = count(step)
+    assert grad.shape == table.shape
+    # every row into each device's slice of the embedding: no partial
+    # sum, and no gradient row gathered (the forward's lookup sums its
+    # vocab-masked rows over "model", no more)
+    assert grad.placements[0] == Shard(1)
+    assert tuple(grad.to_local().shape) == (4096, 1024 // 16)
     assert sum(c.coll_bytes.values()) < 4096 * 1024 * 4
 
 
@@ -340,3 +415,84 @@ def test_an_op_without_a_sharding_rule_raises(production_mesh):
     x = _shard(production_mesh, ("data", None), 64, 64)
     with pytest.raises(NotImplementedError, match="sharding strategy"):
         count(lambda: torch.renorm(x, 2, 0, 1.0))
+
+
+def test_outer_product_bills_no_flops(production_mesh):
+    # a contraction of size 1 is a multiply to XLA's simplifier: no dot
+    mesh = production_mesh
+    a = _shard(mesh, ("data", None), 64, 1)
+    b = _shard(mesh, (None, None), 1, 32)
+    assert _count_as_xla(lambda: a @ b)[1].flops == 0
+    a = _shard(mesh, ("data", None, None), 16, 64, 1)
+    b = _shard(mesh, ("data", None, None), 16, 1, 32)
+    assert _count_as_xla(lambda: torch.bmm(a, b))[1].flops == 0
+    # any other count bills the product the port launches for it
+    assert count(lambda: torch.bmm(a, b))[1].flops == 2 * 64 * 32
+
+
+def test_plain_count_bills_an_outer_product():
+    # on one card the port launches a product for it all the same
+    m = graph_metrics(lambda a, b: a @ b, _zeros(64, 1), _zeros(1, 32))
+    assert m["flops"] == 2 * 64 * 32
+    m = graph_metrics(torch.bmm, _zeros(4, 64, 1), _zeros(4, 1, 32))
+    assert m["flops"] == 2 * 4 * 64 * 32
+
+
+@pytest.mark.parametrize("kh", [32, 8])
+def test_plain_attention_backward_bills_the_kernels_products(kh):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    b, h, s, d = 2, 32, 64, 32
+    q = _zeros(b, h, s, d).requires_grad_(True)
+    k = _zeros(b, kh, s, d).requires_grad_(True)
+    v = _zeros(b, kh, s, d).requires_grad_(True)
+
+    def step():
+        out = flash_attention(q, k, v, causal=True)
+        return torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+
+    (dq, dk, dv), c = count(step)
+    assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
+    fwd = 2 * 2 * b * h * s * s * d
+    # one card: the kernel's own backward, which recomputes P, then dP,
+    # dq, dk and dv
+    assert c.flops == fwd + 5 * fwd // 2
+
+
+def test_split_along_a_sharded_dimension_keeps_it(production_mesh):
+    mesh = production_mesh
+    x = _shard(mesh, ("data", "model"), 256, 2048).requires_grad_(True)
+
+    def step():
+        a, b = x.chunk(2, dim=-1)
+        return a, b, torch.autograd.grad((a * b).sum(), x)[0]
+
+    (a, b, grad), c = count(step)
+    # each piece keeps "model" on its columns, and so does the gradient
+    # (the pieces' gradients concatenated)
+    assert a.placements == b.placements == x.placements
+    assert tuple(a.to_local().shape) == (256 // 16, 1024 // 16)
+    assert grad.placements == x.placements
+    assert c.flops == 0
+
+
+def test_cross_entropy_gradient_keeps_the_logits_sharding(production_mesh):
+    from repro_torch.models.common import cross_entropy
+
+    mesh = production_mesh
+    # the train rules' logits: every row on each device, the vocabulary
+    # over "model"; labels sharded on the batch
+    logits = _shard(mesh, (None, None, "model"), 16, 8, 4096)
+    logits.requires_grad_(True)
+    labels = _shard(mesh, ("data", None), 16, 8, dtype=torch.int64)
+
+    def step():
+        loss = cross_entropy(logits, labels)
+        return loss, torch.autograd.grad(loss, logits)[0]
+
+    (loss, grad), c = count(step)
+    assert loss.shape == ()
+    assert grad.placements == logits.placements
+    assert tuple(grad.to_local().shape) == (16, 8, 4096 // 16)
+    # each row's max, sum and label logit reduced, no logit row gathered
+    assert sum(c.coll_bytes.values()) < 16 * 8 * 4096 * 4 // 16

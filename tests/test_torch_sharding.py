@@ -195,30 +195,15 @@ def test_batch_and_cache_specs_equal_the_reference(arch, multi_pod):
             assert got == want, (shape, rules.name)
 
 
-def _nested(flat):
-    """A flat {dotted path: leaf} dict as the reference's nested tree
-    (numeric levels as lists)."""
-    root = {}
-    for path, leaf in flat.items():
-        node, parts = root, path.split(".")
-        for key in parts[:-1]:
-            node = node.setdefault(key, {})
-        node[parts[-1]] = leaf
-
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        if all(k.isdigit() for k in node):
-            return [listify(node[str(i)]) for i in range(len(node))]
-        return {k: listify(v) for k, v in node.items()}
-    return listify(root)
-
-
 @pytest.mark.parametrize("multi_pod", [False, True])
 @pytest.mark.parametrize("opt", ["adamw", "adafactor"])
 @pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-v3-671b",
                                   "jamba-v0.1-52b", "rwkv6-1.6b"])
 def test_opt_state_shardings_equal_the_reference(arch, opt, multi_pod):
+    """The port's optimizer-state shardings, leaf by leaf, against the
+    reference's on the reference's own tree, whose block parameters are
+    stacked over their segment's layers (a stacked leaf's spec without its
+    layers axis for each of the port's per-layer leaves)."""
     cfg = get_config(arch, smoke=True)
     shapes, axes = abstract_params(lambda dev: build_model(cfg, device=dev))
     shapes = {k: torch.empty(v.shape, dtype=torch.float32, device="meta")
@@ -228,23 +213,31 @@ def test_opt_state_shardings_equal_the_reference(arch, opt, multi_pod):
     mesh, rmesh = stand_in(multi_pod), ref_mesh(multi_pod)
     rules, rrules = S.train_rules(multi_pod), RS.train_rules(multi_pod)
 
-    state = abstract_opt_state(port_opt, shapes)
-    ref_shapes = _nested({k: jax.ShapeDtypeStruct(tuple(v.shape), jnp.float32)
-                          for k, v in shapes.items()})
-    ref_axes = _nested(axes)
-    ref_state = RT.abstract_opt_state(ref_opt, ref_shapes)
-    got = {p: (tuple(t.shape), str(t.dtype).split(".")[-1], t.device.type)
-           for p, t in S.tree_leaves(state)}
-    want = {p: (tuple(s.shape), jnp.dtype(s.dtype).name, "meta")
-            for p, s in _leaves(ref_state)}
-    assert got == want
+    ref_shapes, ref_axes = ref_build_model(
+        ref_get_config(arch, smoke=True)).abstract(jax.random.key(0))
+    ref_shapes = jax.tree.map(
+        lambda s: jax.ShapeDtypeStruct(s.shape, jnp.float32), ref_shapes)
+    ref_state = dict(_leaves(RT.abstract_opt_state(ref_opt, ref_shapes)))
+    ref_sh = dict(_leaves(RT.opt_state_shardings(ref_opt, ref_shapes,
+                                                 ref_axes, rrules, rmesh)))
+    want_shape, want_spec = {}, {}
+    for path, s in ref_state.items():
+        spec = tuple(ref_sh[path].spec)
+        parts = path.split(".")
+        if len(parts) > 2 and parts[1] in ("segments", "encoder"):
+            head = 3 if parts[1] == "segments" else 2
+            for layer in range(s.shape[0]):
+                p = ".".join(parts[:head] + [str(layer)] + parts[head:])
+                want_shape[p], want_spec[p] = tuple(s.shape[1:]), spec[1:]
+        else:
+            want_shape[path], want_spec[path] = tuple(s.shape), spec
 
+    state = abstract_opt_state(port_opt, shapes)
+    assert {p: tuple(t.shape) for p, t in S.tree_leaves(state)} == want_shape
+    assert all(t.dtype == torch.float32 and t.device.type == "meta"
+               for _, t in S.tree_leaves(state))
     port_sh = opt_state_shardings(port_opt, shapes, axes, rules, mesh)
-    ref_sh = RT.opt_state_shardings(ref_opt, ref_shapes, ref_axes, rrules,
-                                    rmesh)
-    got = {p: sh.spec for p, sh in S.tree_leaves(port_sh)}
-    want = {p: tuple(sh.spec) for p, sh in _leaves(ref_sh)}
-    assert got == want
+    assert {p: sh.spec for p, sh in S.tree_leaves(port_sh)} == want_spec
 
 
 def test_abstract_opt_state_of_real_values_allocates_nothing():

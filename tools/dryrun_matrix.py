@@ -12,8 +12,14 @@ and where it arose. One JSON line a cell goes to stdout and to
         --skip jamba-v0.1-52b:train_4k,jamba-v0.1-52b:prefill_32k
     PYTHONPATH=src python tools/dryrun_matrix.py --layers 2   # depth-cut
     PYTHONPATH=src python tools/dryrun_matrix.py --arch rwkv6-1.6b
+    JAX_PLATFORMS=cpu PYTHONPATH=src python tools/dryrun_matrix.py \
+        --reference --jobs 2 --out chiprun_out/dryrun_matrix_ref.jsonl
 
-It needs no card: the counts are shape-only, on the CPU.
+It needs no card: the counts are shape-only, on the CPU. ``--reference``
+lowers the same cells with the reference's ``repro/launch/dryrun.py::
+lower_cell`` instead, each in a subprocess of its own (512 host devices in
+its ``XLA_FLAGS``) killed at the limit; that needs JAX, so not the card
+machine.
 """
 
 from __future__ import annotations
@@ -30,6 +36,52 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+
+
+_REFERENCE = """
+import json, sys
+from repro.launch import dryrun
+from repro.launch.mesh import make_production_mesh
+arch, shape, multi, layers = sys.argv[1], sys.argv[2], sys.argv[3] == "1", int(sys.argv[4])
+overrides = {"num_layers": layers, "exits": (layers // 2, layers)} if layers else None
+rec = dryrun.lower_cell(arch, shape, make_production_mesh(multi_pod=multi),
+                        multi, overrides=overrides)
+print(json.dumps({"flops": rec["hlo_metrics"]["flops"],
+                  "collective_bytes": rec["collectives"]["bytes"]["total"],
+                  "num_devices": rec["num_devices"],
+                  "model_flops": rec["model_flops"],
+                  "static": rec["bytes_per_device_static"]}))
+"""
+
+
+def lower_reference(job):
+    """One cell lowered by the reference in a subprocess: its summary, or
+    the subprocess's error or time-out."""
+    import subprocess
+
+    arch, shape, multi, layers, limit = job
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    row = {"cell": f"{arch}:{shape}"}
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", _REFERENCE, arch, shape, str(int(multi)),
+             str(layers)], env=env, cwd=ROOT, capture_output=True,
+            text=True, timeout=limit)
+        if out.returncode:
+            row.update(ok=False, error=out.stderr.strip()[-240:])
+        else:
+            rec = json.loads(out.stdout.strip().splitlines()[-1])
+            row.update(ok=True, flops=rec["flops"],
+                       collective_bytes=rec["collective_bytes"],
+                       flops_over_model=(rec["flops"] * rec["num_devices"]
+                                         / rec["model_flops"]),
+                       static_gib=rec["static"] / 2**30)
+    except subprocess.TimeoutExpired:
+        row.update(ok=False, error=f"TimeoutError: over {limit} s")
+    row["seconds"] = time.perf_counter() - t0
+    return row
 
 
 def lower(job):
@@ -88,6 +140,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="",
                     help="arch,... to keep (default: every arch)")
     ap.add_argument("--out", default="chiprun_out/dryrun_matrix.jsonl")
+    ap.add_argument("--reference", action="store_true",
+                    help="lower with the reference's lower_cell (needs JAX)")
     args = ap.parse_args(argv)
 
     import torch
@@ -101,12 +155,14 @@ def main(argv=None) -> int:
             for c in list_cells(archs, list(SHAPES))
             if len(c) == 2 and f"{c[0]}:{c[1]}" not in skip]
     print(json.dumps({"torch": torch.__version__, "mesh": args.mesh,
-                      "cells": len(jobs)}), flush=True)
+                      "cells": len(jobs), "reference": args.reference}),
+          flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     ok = 0
     with mp.get_context("spawn").Pool(args.jobs) as pool, \
             open(args.out, "w") as fh:
-        for row in pool.imap_unordered(lower, jobs):
+        for row in pool.imap_unordered(
+                lower_reference if args.reference else lower, jobs):
             ok += row["ok"]
             line = json.dumps(row)
             fh.write(line + "\n")
