@@ -100,7 +100,9 @@ early-exit LMs (served quanta and KV-cache decode):
    (16, 16) production mesh (``launch/dryrun.py::lower_cell``), its flops
    a device held to the reference's count (``COST_REFERENCE_FLOPS``), and
    the six families' two-layer train cells counted on this torch beside
-   the CPU's counts (``COST_TRAIN_CPU``);
+   the CPU's counts (``COST_TRAIN_CPU``), and the decode attention's two
+   serve cells (Jamba ``long_500k``, Seamless ``decode_32k`` on (2, 16,
+   16)) the same, their collective bytes within 4x of the reference's;
 12. the rest of the model zoo (``lm_zoo``): the LM kernels against their
    plain versions at the zoo's new shapes (GQA groups 9 and 1, head dim
    64, the Seamless encoder's non-causal S = 1024, LLaVA's 2880 patches,
@@ -882,6 +884,30 @@ COST_TRAIN_CPU = {
     "seamless-m4t-large-v2": [90282292936704.0, 225769926884.0,
                               463830784.0],
 }
+# the two serve cells of the decode attention's partition rule, cut to two
+# layers (the overrides of tests/test_torch_dryrun_reference_zoo.py), by
+# (arch, shape, mesh); the port's counts of them with torch 2.13 on the CPU
+# (flops, collective bytes, static bytes a device); and the reference's
+# collective bytes a device (its lower_cell, JAX 0.9.0), which the card's
+# count must keep within COST_COLLECTIVE_BAND (torch 2.11's DTensor had
+# gathered Seamless's decode caches: 5.81x)
+COST_SERVE_CELLS = {
+    ("jamba-v0.1-52b", "long_500k", "single"): {
+        "num_layers": 2, "exits": (2,), "attn_period": 2, "attn_offset": 1},
+    ("seamless-m4t-large-v2", "decode_32k", "multi"): {
+        "num_layers": 2, "exits": (1, 2)},
+}
+COST_SERVE_CPU = {
+    ("jamba-v0.1-52b", "long_500k", "single"): [
+        711516160.0, 87948.0, 594205704.0],
+    ("seamless-m4t-large-v2", "decode_32k", "multi"): [
+        2199502848.0, 152576.0, 1215211568.0],
+}
+COST_SERVE_REFERENCE_COLLECTIVES = {
+    ("jamba-v0.1-52b", "long_500k", "single"): 124368.0,
+    ("seamless-m4t-large-v2", "decode_32k", "multi"): 296968.0,
+}
+COST_COLLECTIVE_BAND = (0.25, 4.0)
 
 
 def _cost_mesh_checks(device, card):
@@ -930,8 +956,10 @@ def phase_cost(device, configs, measured, horizon=COST_HORIZON_S,
     = scoring rounds; (d) ``lower_cell`` of ``cell`` on the (16, 16)
     production mesh, held to the reference's count; (e) the six two-layer
     train cells (``COST_TRAIN_CELLS``) on this torch, printed beside the
-    CPU's counts, their flops and static bytes held equal to them.
-    Returns the stability kernel's launches of (c)."""
+    CPU's counts, their flops and static bytes held equal to them; (f)
+    the decode attention's two serve cells (``COST_SERVE_CELLS``) the
+    same, and their collective bytes within ``COST_COLLECTIVE_BAND`` of
+    the reference's. Returns the stability kernel's launches of (c)."""
     import torch
 
     from repro_torch.core import (
@@ -1060,6 +1088,39 @@ def phase_cost(device, configs, measured, horizon=COST_HORIZON_S,
               if not (c["flops_as_cpu"] and c["static_as_cpu"])]
     check(not differ, f"train cells whose flops or static bytes differ "
           f"from the CPU's on torch {torch.__version__}: {differ}")
+
+    # (f) the decode attention's two serve cells on this torch: flops and
+    # static bytes as the CPU's, collective bytes within the band of the
+    # reference's
+    cells = {}
+    for (arch, shape, name), overrides in COST_SERVE_CELLS.items():
+        multi = name == "multi"
+        prod = make_production_mesh(multi_pod=multi)
+        try:
+            rec = lower_cell(arch, shape, prod, multi, overrides=overrides)
+        finally:
+            release_mesh()
+        cpu = COST_SERVE_CPU[(arch, shape, name)]
+        coll = rec["collectives"]["bytes"]["total"]
+        ref = COST_SERVE_REFERENCE_COLLECTIVES[(arch, shape, name)]
+        cells[f"{arch}:{shape}:{name}"] = dict(
+            flops=rec["hlo_metrics"]["flops"], collective_bytes=coll,
+            static_bytes=rec["bytes_per_device_static"],
+            run_s=rec["compile_s"], cpu=cpu,
+            flops_as_cpu=rec["hlo_metrics"]["flops"] == cpu[0],
+            static_as_cpu=rec["bytes_per_device_static"] == cpu[2],
+            collective_bytes_over_cpu=coll / cpu[1],
+            collective_bytes_over_reference=coll / ref)
+    emit("cost_serve_cells", card=card, torch=torch.__version__,
+         cells=cells)
+    lo, hi = COST_COLLECTIVE_BAND
+    differ = [c for c, r in cells.items()
+              if not (r["flops_as_cpu"] and r["static_as_cpu"]
+                      and lo <= r["collective_bytes_over_reference"] <= hi)]
+    check(not differ, f"serve cells whose flops or static bytes differ "
+          f"from the CPU's, or whose collective bytes leave "
+          f"{COST_COLLECTIVE_BAND} of the reference's, on torch "
+          f"{torch.__version__}: {differ}")
     emit("cost_phase", card=card, seconds=time.perf_counter() - t_phase)
     return launches_total
 

@@ -87,6 +87,13 @@ general model of XLA's sharding propagation:
   share of its columns where devices share a kv head
   (:func:`_attention_bwd_as_xla`), elsewhere as the kernel's own; the RMSNorm
   backward takes each gradient on its input's sharding;
+* the decode-attention kernel runs on each device's batch rows and, where
+  a mesh dimension splits the cache's positions, on its positions for
+  every head, the softmax's max and sum and the output's partial sums
+  all-reduced over that dimension; where q's heads lay there and a mesh
+  dimension of the same size is idle (one row), the value product on each
+  device's own heads over the idle dimension, the output moved back by one
+  collective-permute (:func:`_local_decode_attention`);
 * MLA attention (``models/attention.py::_mla_attend``) runs with its
   heads on the mesh dimension that shards them, or, where a decode cache
   shards the keys' positions, split on those positions
@@ -112,7 +119,11 @@ left to ``DTensor``'s choices; the test files below hold their counts too.
 Two of RWKV6's, the channel mix's receptance and the weight gradient of
 the time mix's ``w_o``, XLA splits by no rule of their parameters' specs;
 the counter splits them otherwise, and ``_train.py`` holds both counts
-phase by phase.
+phase by phase. SmolLM's q projection on (2, 16, 16): XLA takes its input
+gradient over all the query columns on each device of "model", where on
+(16, 16), and for the k and v projections on both meshes, it keeps the
+gradient's tiling as the counter does; ``_train.py`` holds that one
+product's difference.
 An op with no sharding rule raises: the dry-run writes the cell's
 ``"error"`` record, never a count of the op run replicated.
 ``tests/test_torch_dryrun_reference.py``, ``_zoo.py`` and ``_train.py``
@@ -664,6 +675,127 @@ def _attention_bwd_as_xla(counter, q, k, v, o, do, causal=True,
             dv.to(v.dtype))
 
 
+def _local_decode_attention(counter, fn, args, kwargs):
+    """The decode-attention kernel (q ``[B, H, D]``, k, v ``[B, K, S, D]``,
+    lengths ``[B]``) over ``DTensor``s, partitioned as XLA partitions the
+    reference's decode attention, mesh dimension by mesh dimension: the
+    batch rows stay where they lie; a dimension that splits the cache's
+    positions splits the keys (q's heads are gathered there, each device
+    scores every head over its positions, and the softmax's max and sum
+    and the value product's partial sums are all-reduced over it). Where
+    q's heads lay on the positions' dimension and a mesh
+    dimension of the same size is idle (a one-row long-context decode), XLA
+    runs the value product on each device's own heads over that idle
+    dimension (a block of heads, kv heads over gcd and the group over the
+    rest) and moves the output's heads back onto the positions' dimension
+    by one collective-permute (:func:`_decode_values`). Every op runs on
+    local shards, so no ``DTensor`` choice (which differs between torch
+    versions) enters the count. Returns ``(output, billed inputs)``, or
+    ``NotImplemented`` (another placement) to leave it to ``DTensor``."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    q, k, v, lengths = args
+    if kwargs or not all(isinstance(t, DTensor) for t in (q, k, v)):
+        return NotImplemented
+    mesh = q.device_mesh
+    rep = Replicate()
+    rows = (rep, Shard(0))
+    q_at, kv_at, row_at, out_at = [], [], [], []
+    keys, idle, heads_on_keys = [], [], []
+    for i in range(mesh.ndim):
+        pq, pk = q.placements[i], k.placements[i]
+        if pk != v.placements[i]:
+            return NotImplemented
+        if pk == Shard(2) and pq in (rep, Shard(1)):   # the cache's positions
+            at = (rep, Shard(2), rep, rep)
+            keys.append(i)
+            if pq == Shard(1):
+                heads_on_keys.append(i)
+        elif pq == pk == rep:
+            at = (rep, rep, rep, rep)
+            idle.append(i)
+        elif pq in rows and pk in rows:                 # the batch rows
+            at = (Shard(0), Shard(0), Shard(0), Shard(0))
+        else:
+            return NotImplemented
+        for acc, a in zip((q_at, kv_at, row_at, out_at), at):
+            acc.append(a)
+    n_heads, n_kv = q.shape[1], k.shape[1]
+    group = n_heads // n_kv
+    split = None
+    for i in heads_on_keys:
+        for j in idle:
+            local = n_heads // mesh.size(j)
+            if (split is None and mesh.size(j) == mesh.size(i)
+                    and n_heads % mesh.size(j) == 0
+                    and (group % local == 0 or local % group == 0)):
+                split = (j, i)
+    ql = q.redistribute(mesh, q_at).to_local()
+    kl, vl = (t.redistribute(mesh, kv_at).to_local() for t in (k, v))
+    ll = _like(lengths, mesh, row_at)
+    b, h, d = ql.shape
+    kh, s = kl.shape[1], kl.shape[2]
+    first = 0     # the device's first position, mesh dimensions in order
+    for i in keys:
+        first = first * mesh.size(i) + mesh.get_coordinate()[i]
+    scores = torch.einsum("bkgd,bksd->bkgs", ql.reshape(b, kh, h // kh, d),
+                          kl).to(torch.float32) * d ** -0.5
+    valid = (torch.arange(first * s, (first + 1) * s, device=ql.device)[None]
+             < ll.to(ql.device)[:, None])
+    scores = scores.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = _split_softmax(scores, mesh, keys).to(ql.dtype)
+    if split is None:
+        out = torch.einsum("bkgs,bksd->bkgd", probs, vl).reshape(b, h, d)
+    else:
+        out = _decode_values(mesh, split[0], probs, vl)
+    for i in keys:
+        out = funcol.all_reduce(out, "sum", (mesh, i))
+    if split is not None:
+        j, i = split
+        at = list(out_at)
+        at[j] = Shard(1)
+        out_at[i] = Shard(1)
+        out = _permuted(DTensor.from_local(out, mesh, at, run_check=False),
+                        out_at)
+    else:
+        out = DTensor.from_local(out, mesh, out_at, run_check=False)
+    return out, (ql, kl, vl, ll)
+
+
+def _split_softmax(scores, mesh, dims):
+    """Softmax along the last dimension of ``scores``, which mesh
+    dimensions ``dims`` split: the local max and sum all-reduced over
+    them."""
+    import torch.distributed._functional_collectives as funcol
+
+    m = scores.amax(-1, keepdim=True)
+    for i in dims:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    e = torch.exp(scores - m)
+    z = e.sum(-1, keepdim=True)
+    for i in dims:
+        z = funcol.all_reduce(z, "sum", (mesh, i))
+    return e / z
+
+
+def _decode_values(mesh, axis, probs, v):
+    """The decode attention's value product (probs ``[B, K, G, S]``, v
+    ``[B, K, S, D]``) on the device's own block of the ``H = K * G`` query
+    heads over mesh dimension ``axis``: ``[B, H / n, D]``."""
+    b, kh, g, s = probs.shape
+    local = kh * g // mesh.size(axis)
+    first = mesh.get_coordinate()[axis] * local
+    k0 = first // g
+    if local <= g:    # a share of one kv head's group
+        p = probs[:, k0:k0 + 1, first % g:first % g + local]
+        vv = v[:, k0:k0 + 1]
+    else:             # whole kv heads
+        p, vv = probs[:, k0:k0 + local // g], v[:, k0:k0 + local // g]
+    return torch.einsum("bkgs,bksd->bkgd", p, vv).reshape(b, local,
+                                                         v.shape[-1])
+
+
 def _mla_partition(fn, args, kwargs):
     """MLA attention (``models/attention.py::_mla_attend``: q ``[B, S, H,
     dn + r]``, the latent c_kv ``[B, T, d_c]`` and rope key k_pe ``[B, T,
@@ -734,17 +866,9 @@ def _mla_split_keys(mesh, axis, q, c_kv, k_pe, wkv_b, dn, dv, causal,
 
     if causal and q.shape[1] > 1:
         return NotImplemented
-
-    def softmax(scores):
-        m = funcol.all_reduce(scores.amax(-1, keepdim=True), "max",
-                              (mesh, axis))
-        e = torch.exp(scores - m)
-        return e / funcol.all_reduce(e.sum(-1, keepdim=True), "sum",
-                                     (mesh, axis))
-
     out = _mla_attend(q, c_kv, k_pe, wkv_b, dn, dv, causal, kv_len=kv_len,
                       kv_offset=mesh.get_coordinate()[axis] * c_kv.shape[1],
-                      softmax=softmax)
+                      softmax=lambda sc: _split_softmax(sc, mesh, [axis]))
     return funcol.all_reduce(out, "sum", (mesh, axis))
 
 
@@ -1088,6 +1212,7 @@ def _rmsnorm_bwd_on_x(counter, fn, args, kwargs):
 _LOCAL_KERNELS = {
     "flash_attention": _local_attention,
     "flash_attention_bwd": _local_attention,
+    "decode_attention": _local_decode_attention,
     "rmsnorm_bwd": _rmsnorm_bwd_on_x,
 }
 

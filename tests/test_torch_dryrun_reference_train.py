@@ -7,7 +7,8 @@ two layers with every width FULL (the overrides of
 ``tests/test_torch_dryrun_reference_zoo.py``: Jamba ``attn_period`` 2 and
 ``attn_offset`` 1, V3 ``dense_prefix`` 1, exits (2,) for Jamba, V3 and
 DeepSeek-MoE, (1, 2) for the rest; Seamless keeps its 24-layer encoder,
-which ``num_layers`` does not cut); Qwen3, V3 and RWKV6 on (2, 16, 16); and
+which ``num_layers`` does not cut); Qwen3, V3, RWKV6 and SmolLM on (2, 16,
+16); and
 Qwen3 at full depth on (16, 16), flops only, whose reference count
 ``chip_smoke.py`` records as ``COST_REFERENCE_FLOPS`` for the card
 machine, which has no JAX. The reference runs in two subprocesses (one a
@@ -86,7 +87,22 @@ prints both sides op by op), and the rules of
   and the backward 1.03e12 under (0.855 of the reference's total; 0.765
   at full depth). XLA's choices here follow no rule of the parameters'
   specs (``w_o`` and the channel mix's ``w_v`` have the same spec, and
-  XLA splits ``w_v``'s gradient), so the counter does not copy them.
+  XLA splits ``w_v``'s gradient), so the counter does not copy them;
+* SmolLM on (2, 16, 16) (0.99932 at two layers and at 30): one product.
+  Its 9 query heads do not divide "model", so the reshape into heads
+  gathers them and the q gradient comes back whole on every device of
+  "model". The q projection's input gradient is then split apart: the
+  port gives the gradient its tiling again (36 of the 576 query columns a
+  device) and contracts those, XLA contracts all 576 on every device
+  (2 * rows * 18 * 576 flops a layer, where the port's is 2 * rows * 18 *
+  36). On (16, 16) XLA keeps the tiling and contracts 36, as the port
+  does, and it keeps it for the k and v projections on both meshes; the
+  parameters' specs are the same on both, so the counter does not copy
+  the (2, 16, 16) choice. The cell is held to the reference's flops less
+  that one product (``TRACED_GAP``), inside a band no wider than it. The
+  unembedding's backward is not apart: XLA's input gradient ``[rows/32,
+  576]`` contracts each device's 3072 vocabulary columns, the same flops
+  as the port's ``[rows, 18]``.
 
 Collective bytes agree within a factor of 4 either way, as for the serve
 cells (the partitioners reduce and move at different ops, and the
@@ -129,6 +145,8 @@ CELLS = {
     ("qwen3-8b", "multi", "2"): (TWO, (1.0, 1.0)),
     ("deepseek-v3-671b", "multi", "2"): (V3, (1.0, 1.0)),
     ("rwkv6-1.6b", "multi", "2"): (TWO, None),
+    # one product short, by TRACED_GAP
+    ("smollm-135m", "multi", "2"): (TWO, (0.99932, 1.0)),
     ("qwen3-8b", "single", "full"): ({}, (1.0, 1.0)),
 }
 DEPTH_CUT = [c for c in CELLS if c[2] != "full"]
@@ -149,6 +167,18 @@ SPLIT_APART = {
     # on D/32 of the input for every output
     "multi": {"port": {"fw": 1 / 32, "bw": 1 / 32 + 2 / 512},
               "reference": {"fw": 1 / 32, "bw": 1 / 32 + 2 / 32}},
+}
+
+
+# the one product XLA and the port split apart in SmolLM on (2, 16, 16)
+# (see the docstring): the q projection's input gradient, which XLA
+# contracts over all H * Dh = 576 query columns on each device of "model"
+# and the port over the device's 36; rows * D/32 outputs, each layer
+D_SMOLLM, Q_SMOLLM = 576, 576
+TRACED_GAP = {
+    ("smollm-135m", "multi", "2"):
+        2 * ROWS * (D_SMOLLM // 32) * (Q_SMOLLM - Q_SMOLLM // 16)
+        * TWO["num_layers"],
 }
 
 
@@ -266,6 +296,10 @@ def test_flops_per_device_against_the_reference(reference, port, cell):
         lo, hi = CELLS[cell][1]
         ratio = ours["flops"] / theirs["flops"]
         assert lo * (1 - 1e-9) <= ratio <= hi * (1 + 1e-9), ratio
+        if cell in TRACED_GAP:
+            # short by that one product and by nothing else
+            assert (theirs["flops"] - ours["flops"]
+                    == pytest.approx(TRACED_GAP[cell], rel=1e-9))
         return
     # every dot of the reference's and every product of the port's falls
     # in one phase or the other

@@ -1,10 +1,12 @@
 """The port's dry-run counts held against the reference's ``lower_cell``
-on the model zoo's serve cells of the (16, 16) mesh: a Mamba/MoE hybrid,
-an RWKV-6, DeepSeek-V3's MLA (prefill and decode) and a fine-grained MoE,
-each cut to two layers with every width FULL. The dense cells are in
-``tests/test_torch_dryrun_reference.py``; this file runs the same
-comparison, with the reference in a subprocess of its own (512 host
-devices in ``XLA_FLAGS`` before JAX starts).
+on the model zoo's serve cells: on the (16, 16) mesh a Mamba/MoE hybrid
+(prefill, and the one-row ``long_500k`` decode), an RWKV-6, DeepSeek-V3's
+MLA (prefill and decode) and a fine-grained MoE; on (2, 16, 16) the
+encoder-decoder's ``decode_32k``; each cut to two layers with every width
+FULL. The dense cells are in ``tests/test_torch_dryrun_reference.py``;
+this file runs the same comparison, with the reference in a subprocess of
+its own (512 host devices in ``XLA_FLAGS`` before JAX starts), both
+meshes in turn.
 
 The cuts (``CELLS``' overrides) keep every width and change the depth
 only:
@@ -17,7 +19,9 @@ only:
   layer (256 experts, top 8) and its exit lies in the MoE region, as the
   reference asserts; both layers are MLA;
 * ``deepseek-moe-16b`` (the MoE cell): its own dense first layer, then an
-  MoE layer (64 experts, top 6, 2 shared).
+  MoE layer (64 experts, top 6, 2 shared);
+* ``seamless-m4t-large-v2``: two decoder layers (exits 1 and 2); a decode
+  step runs no encoder layer.
 
 The bands of port flops over reference flops:
 
@@ -30,6 +34,18 @@ The bands of port flops over reference flops:
   (``launch/graph_analysis.py::_mla_partition``, ``_wkv_partition``,
   ``_moe_partition``). The MLA decode is split on the cache's positions,
   as XLA splits it.
+* Jamba ``long_500k``, Seamless ``decode_32k``: equal. Both run the
+  decode-attention kernel, by its own rule
+  (``launch/graph_analysis.py::_local_decode_attention``): the cache's
+  positions split on "model", every head scored on the device's share.
+  Jamba's one row leaves "data" idle, and XLA runs the value product there
+  on the device's 2 of 32 query heads; ``DTensor`` had billed it on every
+  head (1.354x the reference at two layers, 1.1333 at full depth).
+  Seamless's flops were equal before; its collective bytes were not on
+  torch 2.11, whose ``DTensor`` gathered the decode caches (5.81x the
+  reference at two layers and at full depth, on the card machine's CPU;
+  0.514x on 2.13). The rule moves q, the softmax's max and sum and the
+  output only, and ``test_decode_attention_moves_no_cache`` holds that.
 * RWKV6 prefill: 1.0-1.02. XLA computes the decay LoRA's second product
   (``tanh(xw @ decay_a) @ decay_b``) for the device's own channels only,
   as its consumer, the decay reshaped into heads, is sharded on "model".
@@ -43,6 +59,7 @@ ops; the MoE layers' gathers dominate the port's prefill counts). Static
 bytes a device are equal.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -73,6 +90,10 @@ CELLS = {
         {"num_layers": 2, "exits": (2,), "dense_prefix": 1}, (1.0, 1.0)),
     ("deepseek-moe-16b", "prefill_32k", "single"): (
         {"num_layers": 2, "exits": (2,)}, (1.0, 1.0)),
+    ("jamba-v0.1-52b", "long_500k", "single"): (
+        {"num_layers": 2, "exits": (2,), "attn_period": 2, "attn_offset": 1},
+        (1.0, 1.0)),
+    ("seamless-m4t-large-v2", "decode_32k", "multi"): (TWO, (1.0, 1.0)),
 }
 COLLECTIVE_BAND = (0.25, 4.0)
 IDS = ["-".join(c) for c in CELLS]
@@ -82,15 +103,19 @@ import json, sys
 from repro.launch import dryrun
 from repro.launch.mesh import make_production_mesh
 cells = json.loads(sys.argv[1])
-mesh = make_production_mesh(multi_pod=False)
 out = {}
-for cell, overrides in cells.items():
-    arch, shape, _ = cell.split(":")
-    overrides["exits"] = tuple(overrides["exits"])
-    rec = dryrun.lower_cell(arch, shape, mesh, False, overrides=overrides)
-    out[cell] = {"flops": rec["hlo_metrics"]["flops"],
-                 "collective_bytes": rec["collectives"]["bytes"]["total"],
-                 "static": rec["bytes_per_device_static"]}
+for multi in (False, True):
+    mesh = make_production_mesh(multi_pod=multi)
+    for cell, overrides in cells.items():
+        arch, shape, name = cell.split(":")
+        if (name == "multi") != multi:
+            continue
+        overrides["exits"] = tuple(overrides["exits"])
+        rec = dryrun.lower_cell(arch, shape, mesh, multi,
+                                overrides=overrides)
+        out[cell] = {"flops": rec["hlo_metrics"]["flops"],
+                     "collective_bytes": rec["collectives"]["bytes"]["total"],
+                     "static": rec["bytes_per_device_static"]}
 print(json.dumps(out))
 """
 
@@ -111,17 +136,22 @@ def reference():
 @pytest.fixture(scope="module")
 def port():
     recs = {}
-    release_mesh()
-    mesh = make_production_mesh(multi_pod=False)
-    try:
-        for (a, s, name), (overrides, _) in CELLS.items():
-            rec = dryrun.lower_cell(a, s, mesh, False, overrides=overrides)
-            recs[f"{a}:{s}:{name}"] = {
-                "flops": rec["hlo_metrics"]["flops"],
-                "collective_bytes": rec["collectives"]["bytes"]["total"],
-                "static": rec["bytes_per_device_static"]}
-    finally:
+    for multi in (False, True):
         release_mesh()
+        mesh = make_production_mesh(multi_pod=multi)
+        try:
+            for (a, s, name), (overrides, _) in CELLS.items():
+                if (name == "multi") != multi:
+                    continue
+                rec = dryrun.lower_cell(a, s, mesh, multi,
+                                        overrides=overrides, ledger=True)
+                recs[f"{a}:{s}:{name}"] = {
+                    "flops": rec["hlo_metrics"]["flops"],
+                    "collective_bytes": rec["collectives"]["bytes"]["total"],
+                    "static": rec["bytes_per_device_static"],
+                    "collectives": rec["ledger"]["collectives"]}
+        finally:
+            release_mesh()
     return recs
 
 
@@ -145,6 +175,49 @@ def test_collective_bytes_against_the_reference(reference, port, cell):
 def test_static_bytes_equal_the_references(reference, port, cell):
     key = ":".join(cell)
     assert port[key]["static"] == reference[key]["static"]
+
+
+def test_decode_attention_moves_no_cache(port):
+    """Seamless's four decode attentions a two-layer step (self and cross
+    a layer) move, by the decode attention's rule, q once (gathered over
+    "model", which splits the cache's positions), the softmax's max and
+    sum and the output once (all-reduced over it), and never a cache: 4
+    rows a device, 16 heads of 64 in bfloat16, the max and sum in
+    float32. Torch 2.11's ``DTensor`` gathered the caches here, 5.81x the
+    reference's collective bytes (the card machine's CPU)."""
+    moved = {}
+    for phase, rule, kind, nbytes in port[
+            "seamless-m4t-large-v2:decode_32k:multi"]["collectives"]:
+        if rule == "decode_attention":
+            moved[kind] = moved.get(kind, 0.0) + nbytes
+    calls, q, stat = 4, 4 * 16 * 64 * 2, 4 * 16 * 4
+    assert moved == {"all-gather": calls * q,
+                     "all-reduce": calls * (q + 2 * stat)}
+
+
+SMOKE_SERVE = [("jamba-v0.1-52b", "long_500k", "single"),
+               ("seamless-m4t-large-v2", "decode_32k", "multi")]
+
+
+@pytest.mark.parametrize("cell", SMOKE_SERVE, ids=[c[0] for c in SMOKE_SERVE])
+def test_chip_smoke_records_the_decode_cells(reference, port, cell):
+    """``chip_smoke.py``'s cost phase counts the decode attention's two
+    serve cells on the card machine's torch: its ``COST_SERVE_*``
+    constants are this file's overrides, this torch's counts and the
+    reference's collective bytes."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    recorded = {node.targets[0].id: ast.literal_eval(node.value)
+                for node in tree.body if isinstance(node, ast.Assign)
+                and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id.startswith("COST_SERVE_")}
+    key = ":".join(cell)
+    assert recorded["COST_SERVE_CELLS"][cell] == CELLS[cell][0]
+    assert recorded["COST_SERVE_CPU"][cell] == [
+        port[key]["flops"], port[key]["collective_bytes"],
+        port[key]["static"]]
+    assert (recorded["COST_SERVE_REFERENCE_COLLECTIVES"][cell]
+            == reference[key]["collective_bytes"])
+    assert set(recorded["COST_SERVE_CELLS"]) == set(SMOKE_SERVE)
 
 
 def _every_trip(steps):

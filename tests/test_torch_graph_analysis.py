@@ -496,3 +496,59 @@ def test_cross_entropy_gradient_keeps_the_logits_sharding(production_mesh):
     assert tuple(grad.to_local().shape) == (16, 8, 4096 // 16)
     # each row's max, sum and label logit reduced, no logit row gathered
     assert sum(c.coll_bytes.values()) < 16 * 8 * 4096 * 4 // 16
+
+
+@pytest.mark.parametrize("rows", [1, 32])
+def test_decode_attention_splits_the_keys(production_mesh, rows):
+    """The decode-attention kernel over the serve rules' placements: q's
+    heads and the cache's positions both on "model". Each device scores
+    every head on its 1/16 of the positions. With one row, "data" is idle
+    and the value product runs on the device's 2 of 32 heads there (kv
+    heads over 8, the group over 2), then its output moves back onto
+    "model" by one collective-permute; with the rows on "data", on every
+    head, the output whole on each device of "model"."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    mesh = production_mesh
+    h, kh, s, d = 32, 8, 32768, 128
+    b = "data" if rows > 1 else None   # one row is not split
+    q = _shard(mesh, (b, "model", None), rows, h, d)
+    k = _shard(mesh, (b, None, "model", None), rows, kh, s, d)
+    lengths = _shard(mesh, (b,), rows, dtype=torch.int32)
+    out, c = count(decode_attention, q, k, k, lengths)
+    local = rows // 16 if rows > 1 else 1
+    scores = 2 * local * h * (s // 16) * d
+    values = scores // 16 if rows == 1 else scores
+    assert c.flops == scores + values
+    assert out.shape == (rows, h, d)
+    # the positions' partial sums all-reduced over "model"; one row's
+    # heads moved back there
+    assert out.placements == ((Shard(0), Replicate()) if rows > 1
+                              else (Replicate(), Shard(1)))
+    assert c.coll_counts["collective-permute"] == (1 if rows == 1 else 0)
+
+
+def test_plain_count_bills_the_decode_products_over_the_whole_cache():
+    """With no mesh, the plain count (no ``as_xla``, as the roofline
+    counts) bills one ``decode_step`` of a two-layer model with the decode
+    kernel's own two products, scores and values, over every head and the
+    whole cache: the only products whose size follows the cache's length,
+    so two lengths' counts part by exactly those."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("qwen3-8b"), num_layers=2,
+                              exits=(1, 2))
+    model = build_model(cfg, device="meta")
+    token = torch.zeros(4, 1, dtype=torch.int32, device="meta")
+    flops = {}
+    for s in (1024, 4096):
+        cache = model.init_cache(4, s, 1)
+        flops[s] = count(model.decode_step, token, cache, 1)[1].flops
+    per_position = 2 * 4 * cfg.num_heads * cfg.head_dim
+    assert flops[4096] - flops[1024] == (cfg.num_layers * 2 * per_position
+                                         * (4096 - 1024))

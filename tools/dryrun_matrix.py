@@ -12,6 +12,8 @@ and where it arose. One JSON line a cell goes to stdout and to
         --skip jamba-v0.1-52b:train_4k,jamba-v0.1-52b:prefill_32k
     PYTHONPATH=src python tools/dryrun_matrix.py --layers 2   # depth-cut
     PYTHONPATH=src python tools/dryrun_matrix.py --arch rwkv6-1.6b
+    PYTHONPATH=src python tools/dryrun_matrix.py --mesh multi \\
+        --cells jamba-v0.1-52b:long_500k,smollm-135m:train_4k
     JAX_PLATFORMS=cpu PYTHONPATH=src python tools/dryrun_matrix.py \
         --reference --jobs 2 --out chiprun_out/dryrun_matrix_ref.jsonl
 
@@ -139,6 +141,8 @@ def main(argv=None) -> int:
     ap.add_argument("--skip", default="", help="arch:shape,... to leave out")
     ap.add_argument("--arch", default="",
                     help="arch,... to keep (default: every arch)")
+    ap.add_argument("--cells", default="",
+                    help="arch:shape,... to keep (default: every cell)")
     ap.add_argument("--out", default="chiprun_out/dryrun_matrix.jsonl")
     ap.add_argument("--reference", action="store_true",
                     help="lower with the reference's lower_cell (needs JAX)")
@@ -150,10 +154,12 @@ def main(argv=None) -> int:
     from repro_torch.launch.dryrun import list_cells
 
     skip = set(filter(None, args.skip.split(",")))
+    keep = set(filter(None, args.cells.split(",")))
     archs = [a for a in args.arch.split(",") if a] or list(ARCH_IDS)
     jobs = [(c[0], c[1], args.mesh == "multi", args.layers, args.limit)
             for c in list_cells(archs, list(SHAPES))
-            if len(c) == 2 and f"{c[0]}:{c[1]}" not in skip]
+            if len(c) == 2 and f"{c[0]}:{c[1]}" not in skip
+            and (not keep or f"{c[0]}:{c[1]}" in keep)]
     print(json.dumps({"torch": torch.__version__, "mesh": args.mesh,
                       "cells": len(jobs), "reference": args.reference}),
           flush=True)
